@@ -15,34 +15,55 @@ non-zero before printing a result. Phases, one JSON line each:
    printed on its own line too.
 2. `build`: the kernels built from `csrc/` (seconds, and the registers
    and spills `nvcc -Xptxas -v` reports).
-3. `kernel`: each of K2 `expand_level`, K3 `value_hash` and K1
-   `xor_inner_product` at the main path's shapes (2^20 x 256 B records,
-   128 queries): kernel and plain PyTorch version on the same seeded
-   inputs must be `torch.equal`; median times from CUDA events, launches
-   per party batch, and the bound reckoned from this run's shapes and the
-   card's rates (K2's figures sum its 13 levels; `level_ms` and
-   `level_bound_ms` give each level).
+3. `kernel`: every kernel at the main path's shapes (2^20 x 256 B
+   records, 128 queries, 13 expansion levels): K2 `expand_level` (its 13
+   levels summed; `level_ms` and `level_bound_ms` give each), K3
+   `value_hash`, K1 `xor_inner_product`, K4 `walk_descend` (one line per
+   phase of walk mode: head 4 -> 2,048 word columns over 9 levels, tail
+   2,048 -> 32,768 over 4 levels with the value hash), K6 `expand_head`
+   (4 -> 2,048) and K5 `expand_tail` (2,048 -> 32,768, 128-column
+   tiles). Kernel and plain PyTorch version on the same seeded inputs
+   must be `torch.equal`; `ms`, one call timed alone between CUDA
+   events (the card also waits on the wrapper's host dispatch),
+   `device_ms`, the device time of one launch (20 launches queued
+   behind a device-side sleep), launches per party batch, and the bound
+   reckoned from this run's shapes and the card's rates (for K4-K6 the
+   doubling work: each tree node's children hashed once). One AES
+   counts the fewer of the published two-input gate count and the LOP3
+   instructions `cuobjdump -sass` finds in the port's AES with its ten
+   rounds written out (`aes_sass_ops`; the `build` line gives both).
 4. `small_path`: a 2^12 x 32 B database served on the card and by the
-   plain versions on the host must give the same bytes per party.
-5. `main_path`: a 2^20 x 256 B database on the card, 128 queries from
+   plain versions on the host must give the same bytes per party, in
+   each expansion mode.
+5. `main_path`, once per expansion mode (`walk`, `tail`, `level`): a
+   2^20 x 256 B database on the card (built once), 128 queries from
    `DenseDpfPirClient.create_plain_requests`, both parties served by
-   `DenseDpfPirServer.create_plain(db).handle_plain_request`; the XOR of
-   the shares must equal every queried record, and the launch counters
-   (zeroed just before this run) must read K2 = 2 x 13, K3 = 2, K1 = 2.
-   Then `main_path_breakdown`: one party's batch split into key staging,
-   expansion and inner product (host clock, synchronized), and the
-   device's busy share from a `torch.profiler` trace of one request.
+   `DenseDpfPirServer.create_plain(db, expansion=mode)
+   .handle_plain_request`; the XOR of the shares must equal every queried
+   record, and the launch counters (zeroed just before each mode's run)
+   must read walk K4 = 4, K1 = 2; tail K6 = 2, K5 = 2, K1 = 2; level
+   K2 = 2 x 13, K3 = 2, K1 = 2, and nothing else. Queries per second
+   come from 16 batches per mode, the modes served in turns;
+   `round_wins` is the share of rounds each mode's batch beat each other
+   mode's, and `fastest` (in the breakdown lines) the mode that won nine
+   rounds in ten against every other, or null. Then
+   `main_path_breakdown` for each mode: one party's batch split into key
+   staging, expansion and inner product (host clock, synchronized), and
+   the device's busy share from a `torch.profiler` trace of one request.
 6. `{"kernels": [...]}`: every ported kernel with its launches on the
-   main path, its agreement, times and bound.
+   main path (the run of the mode that launches it; K1 from the default
+   mode's), its agreement, times (`ms` and `device_ms`) and bound.
 7. `{"ok": true, "device": {...}}` as the last line.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,6 +84,9 @@ INT32_LANES_PER_SM = 64
 # circuits, so that they hold for any bitsliced AES.
 SBOX_GATES = 113
 MIXCOLUMN_XORS = 92
+# Cycles of the device-side sleep that `kernel_time_ms` queues first
+# (~25 ms at 2 GHz): longer than the host takes to dispatch 20 launches.
+SLEEP_CYCLES = 50_000_000
 
 
 def emit(obj) -> None:
@@ -78,7 +102,10 @@ def nvidia_smi(query: str) -> str:
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times (ms)."""
+    """Median of per-call CUDA-event times (ms): the device stream's
+    time for the whole call, host dispatch gaps included (the plain
+    versions, whose thousands of small ops keep the card waiting on the
+    host)."""
     import torch
 
     for _ in range(warmup):
@@ -92,6 +119,29 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_time_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Device time of one launch (ms): `reps` launches queued behind a
+    device-side sleep, so the host's dispatch runs ahead of the card and
+    the events between them see the kernels alone, back to back; the
+    median over `rounds`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -115,14 +165,92 @@ def require_equal(name, got, want) -> int:
 
 def aes_word_ops(key_index: int) -> int:
     """The fewest 32-bit word operations of one bitsliced AES-128 with a
-    fixed key on one 32-lane column: 160 S-boxes of `SBOX_GATES`, 9 x 4
-    MixColumns columns of `MIXCOLUMN_XORS`, and one NOT per set
-    round-key bit (a clear bit costs nothing)."""
+    fixed key on one 32-lane column, in published two-input gates: 160
+    S-boxes of `SBOX_GATES`, 9 x 4 MixColumns columns of
+    `MIXCOLUMN_XORS`, and one NOT per set round-key bit (a clear bit
+    costs nothing)."""
     from distributed_point_functions_tpu_torch.ops import sbox_codegen
     from distributed_point_functions_tpu_torch.ops.aes_bitslice import _rk_bits
 
     _, rk = sbox_codegen.ROUND_KEYS[key_index]
     return 160 * SBOX_GATES + 36 * MIXCOLUMN_XORS + int(_rk_bits(rk).sum())
+
+
+# One AES-128 per thread with the key fixed at compile time, its ten
+# rounds written out in a row (no loop, so each instruction in the SASS
+# runs once), and the round keys' NOTs free to fold into the three-input
+# LOP3 instructions around them: the fewest instructions the compiler
+# finds for the port's circuit (the kernels keep the rounds in a loop).
+def aes_probe_source(key: int) -> str:
+    rounds = "\n".join(
+        f"  sub_bytes(s); {'shift_rows_mix_columns' if rnd < 10 else 'shift_rows'}(s);"
+        f" add_round_key(s, {key}, {rnd});"
+        for rnd in range(1, 11))
+    return f"""#include "aes_generated.cuh"
+extern "C" __global__ void aes_probe(const uint32_t* in, uint32_t* out) {{
+  uint32_t s[128];
+#pragma unroll
+  for (int p = 0; p < 128; ++p) s[p] = in[p * blockDim.x + threadIdx.x];
+  add_round_key(s, {key}, 0);
+{rounds}
+#pragma unroll
+  for (int p = 0; p < 128; ++p) out[p * blockDim.x + threadIdx.x] = s[p];
+}}
+"""
+
+
+PROBE_KEYS = (0, 1, 2)  # kKeyLeft, kKeyRight, kKeyValue
+
+
+def start_aes_probe(cuda_lib, work: Path) -> list:
+    """Start one nvcc per key, compiling `aes_probe_source` to a cubin in
+    `work`."""
+    procs = []
+    for key in PROBE_KEYS:
+        (work / f"aes_probe{key}.cu").write_text(aes_probe_source(key))
+        procs.append(subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.ARCH, "-O3", "-std=c++17", "-cubin",
+             "-I", str(cuda_lib.CSRC), str(work / f"aes_probe{key}.cu"),
+             "-o", str(work / f"aes_probe{key}.cubin")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def sass_counts(sass: str) -> tuple:
+    """(LOP3, all, branch) instructions in a `cuobjdump -sass` listing."""
+    lop3 = total = branches = 0
+    for line in sass.splitlines():
+        if not (line.strip().startswith("/*") and "*/" in line):
+            continue
+        op = line.split("*/", 1)[1].split()
+        if op and op[0].startswith("@"):
+            op = op[1:]  # a predicate
+        if op and not op[0].startswith("/*"):
+            total += 1
+            lop3 += op[0].startswith("LOP3")
+            branches += op[0].startswith("BRA")
+    return lop3, total, branches
+
+
+def aes_sass_ops(cuda_lib, work: Path, procs) -> dict:
+    """{key index: (LOP3 instructions, all instructions)} of one AES in
+    the probe's SASS (`cuobjdump -sass`)."""
+    cuobjdump = str(Path(cuda_lib._nvcc()).with_name("cuobjdump"))
+    counts = {}
+    for key, proc in zip(PROBE_KEYS, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the AES probe:\n{out[-4000:]}")
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(work / f"aes_probe{key}.cubin")],
+            capture_output=True, text=True, check=True).stdout
+        lop3, total, branches = sass_counts(sass)
+        # One BRA is the self-loop after EXIT; more would be a loop, whose
+        # body the static count would under-count.
+        if branches > 1 or lop3 == 0:
+            raise RuntimeError(f"AES probe {key}: {branches} branches, {lop3} LOP3")
+        counts[key] = (lop3, total)
+    return counts
 
 
 def main() -> int:
@@ -148,7 +276,10 @@ def main() -> int:
     )
     from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
     from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
+        DEFAULT_EXPANSION,
+        EXPANSION_MODES,
         evaluate_selection_blocks_planes,
+        expansion_plan,
     )
 
     dev = torch.device("cuda", 0)
@@ -173,12 +304,27 @@ def main() -> int:
         t_bytes = nbytes / hbm * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    # 2. Build.
+    # 2. Build, with the AES probe compiled beside the kernels.
     t0 = time.perf_counter()
-    cuda_lib.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    cuda_lib.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    probe_dir = Path(tempfile.mkdtemp(prefix=".aes_probe-", dir=cuda_lib.BUILD_ROOT))
+    try:
+        probe = start_aes_probe(cuda_lib, probe_dir)
+        cuda_lib.library()
+        build_s = time.perf_counter() - t0
+        sass = aes_sass_ops(cuda_lib, probe_dir, probe)
+    finally:
+        shutil.rmtree(probe_dir, ignore_errors=True)
+    gate_ops = {k: aes_word_ops(k) for k in sass}
+    aes_ops = {k: min(gate_ops[k], sass[k][0]) for k in sass}
+    emit({"phase": "build", "seconds": build_s,
+          "probe_seconds": time.perf_counter() - t0,
           "dir": str(cuda_lib.build_dir().relative_to(root)),
-          "ptxas": cuda_lib.ptxas_report().splitlines()})
+          "ptxas": cuda_lib.ptxas_report().splitlines(),
+          "aes_gate_ops": gate_ops,
+          "aes_sass_lop3": {k: v[0] for k, v in sass.items()},
+          "aes_sass_instructions": {k: v[1] for k, v in sass.items()},
+          "aes_ops_in_bounds": aes_ops})
 
     rng = np.random.default_rng(SEED)
 
@@ -188,31 +334,61 @@ def main() -> int:
     # 3. Kernels at the main path's shapes.
     kg = NUM_QUERIES // 32
     expand_levels = ((NUM_RECORDS // 128) - 1).bit_length()
+    plans = {mode: expansion_plan(mode, kg, expand_levels) for mode in EXPANSION_MODES}
     results = {}
 
+    # Word ops of one child column of a doubling level (AES + 64 sigma +
+    # 128 feed-forward + 256 correction + 2 control) and of one leaf
+    # value column (AES + 448).
+    child_ops = aes_ops[0] + 64 + 128 + 256 + 2
+    value_ops = aes_ops[2] + 64 + 128 + 256
+
+    def doubling_work(g0, r, value):
+        """(ops, bytes) of r doubling levels from g0 columns, each tree
+        node's children hashed once, plus the value hash: inputs read
+        once (state, ctrl, r levels of corrections, vc), outputs written
+        once (planes and ctrl at width g0 << r)."""
+        w = g0 << r
+        ops = 2 * g0 * ((1 << r) - 1) * child_ops + (w * value_ops if value else 0)
+        nbytes = 4 * (129 * g0 + r * 130 * kg + (128 * kg if value else 0) + 129 * w)
+        return ops, nbytes
+
+    def measure(name, run, plain, ops, nbytes, plain_reps=3, plain_warmup=1):
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(ops, nbytes)
+        return {"err": require_equal(name, got, want),
+                "ms": cuda_time_ms(run, reps=20),
+                "device_ms": kernel_time_ms(run),
+                "plain_ms": cuda_time_ms(plain, reps=plain_reps, warmup=plain_warmup),
+                "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes}
+
+    def add_up(parts):
+        """One batch's figures of a kernel launched in several shapes."""
+        ops = sum(p["ops"] for p in parts)
+        nbytes = sum(p["bytes"] for p in parts)
+        return {"err": max(p["err"] for p in parts),
+                "ms": sum(p["ms"] for p in parts),
+                "device_ms": sum(p["device_ms"] for p in parts),
+                "plain_ms": sum(p["plain_ms"] for p in parts),
+                "bound_ms": sum(p["bound_ms"] for p in parts),
+                "bound_by": bound(ops, nbytes)[1], "ops": ops, "bytes": nbytes}
+
     # K2: one launch per level, width G = KG * 2^i.
-    k2_ops_child = aes_word_ops(0) + 64 + 128 + 256 + 2
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
-          "ops": 0, "bytes": 0, "level_ms": [], "level_bound_ms": []}
+    levels = []
     for i in range(expand_levels):
         g = kg << i
         args = (rand_words(16, 8, g), rand_words(g), rand_words(16, 8, kg),
                 rand_words(kg), rand_words(kg))
-        got = ep.expand_level(*args)
-        want = ep.expand_level_plain(*args)
-        torch.cuda.synchronize()
-        k2["err"] = max(k2["err"], require_equal(f"expand_level G={g}", got, want))
-        level_ms = cuda_time_ms(lambda: ep.expand_level(*args), reps=20)
-        k2["level_ms"].append(level_ms)
-        k2["ms"] += level_ms
-        k2["plain_ms"] += cuda_time_ms(lambda: ep.expand_level_plain(*args), reps=3, warmup=1)
-        ops = 2 * g * k2_ops_child
-        nbytes = 4 * (128 * g + g + 128 * kg + 2 * kg + 2 * 128 * g + 2 * g)
-        k2["ops"] += ops
-        k2["bytes"] += nbytes
-        k2["level_bound_ms"].append(bound(ops, nbytes)[0])
-        k2["bound_ms"] += k2["level_bound_ms"][-1]
-    k2["bound_by"] = bound(k2["ops"], k2["bytes"])[1]
+        levels.append(measure(
+            f"expand_level G={g}", lambda: ep.expand_level(*args),
+            lambda: ep.expand_level_plain(*args), 2 * g * child_ops,
+            4 * (128 * g + g + 128 * kg + 2 * kg + 2 * 128 * g + 2 * g)))
+    k2 = add_up(levels)
+    k2["level_ms"] = [lv["ms"] for lv in levels]
+    k2["level_device_ms"] = [lv["device_ms"] for lv in levels]
+    k2["level_bound_ms"] = [lv["bound_ms"] for lv in levels]
     results["expand_level"] = k2
     emit({"phase": "kernel", "name": "expand_level", "levels": expand_levels,
           "launches_per_batch": expand_levels, **k2})
@@ -220,63 +396,93 @@ def main() -> int:
     # K3: the leaf value hash at width KG * 2^levels.
     g = kg << expand_levels
     args = (rand_words(16, 8, g), rand_words(g), rand_words(16, 8, kg))
-    got = ep.value_hash(*args)
-    want = ep.value_hash_plain(*args)
-    torch.cuda.synchronize()
-    ops = g * (aes_word_ops(2) + 64 + 128 + 256)
-    nbytes = 4 * (128 * g + g + 128 * kg + 128 * g)
-    b_ms, b_by = bound(ops, nbytes)
-    k3 = {"err": require_equal("value_hash", got, want),
-          "ms": cuda_time_ms(lambda: ep.value_hash(*args), reps=20),
-          "plain_ms": cuda_time_ms(lambda: ep.value_hash_plain(*args), reps=3, warmup=1),
-          "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes}
-    results["value_hash"] = k3
+    results["value_hash"] = measure(
+        "value_hash", lambda: ep.value_hash(*args), lambda: ep.value_hash_plain(*args),
+        g * value_ops, 4 * (128 * g + g + 128 * kg + 128 * g))
     emit({"phase": "kernel", "name": "value_hash", "G": g,
-          "launches_per_batch": 1, **k3})
+          "launches_per_batch": 1, **results["value_hash"]})
+
+    def fused_args(g0, r):
+        return (rand_words(16, 8, g0), rand_words(g0), rand_words(r, 16, 8, kg),
+                rand_words(r, kg), rand_words(r, kg), rand_words(16, 8, kg))
+
+    # K4: walk mode's head (no value hash) and tail (value hash) phases.
+    head, tail, _ = plans["walk"]
+    phases = []
+    for phase, g0, r, vh in (("head", kg, head, False),
+                             ("tail", kg << (expand_levels - tail), tail, True)):
+        *args, vc = fused_args(g0, r)
+        part = measure(
+            f"walk_descend {phase}",
+            lambda: ep.walk_descend(*args, vc, value_hash=vh),
+            lambda: ep.walk_descend_plain(*args, vc, value_hash=vh),
+            *doubling_work(g0, r, vh))
+        phases.append(part)
+        emit({"phase": "kernel", "name": "walk_descend", "walk_phase": phase,
+              "G0": g0, "levels": r, "W": g0 << r, "value_hash": vh,
+              "launches_per_batch": 1, **part})
+    results["walk_descend"] = add_up(phases)
+
+    # K6 and K5: tail mode's head and tiled tail.
+    head, tail, tile_nodes = plans["tail"]
+    *args, _ = fused_args(kg, head)
+    results["expand_head"] = measure(
+        "expand_head", lambda: ep.expand_head(*args),
+        lambda: ep.expand_head_plain(*args), *doubling_work(kg, head, False))
+    emit({"phase": "kernel", "name": "expand_head", "G0": kg, "levels": head,
+          "W": kg << head, "launches_per_batch": 1, **results["expand_head"]})
+    g0 = kg << (expand_levels - tail)
+    args = fused_args(g0, tail)
+    # The plain version runs tile by tile (16 tiles here): one timed call.
+    results["expand_tail"] = measure(
+        "expand_tail", lambda: ep.expand_tail(*args, tile_nodes * kg),
+        lambda: ep.expand_tail_plain(*args, tile_nodes * kg),
+        *doubling_work(g0, tail, True), plain_reps=1, plain_warmup=0)
+    emit({"phase": "kernel", "name": "expand_tail", "G0": g0, "levels": tail,
+          "W": g0 << tail, "tile_lanes": tile_nodes * kg,
+          "launches_per_batch": 1, **results["expand_tail"]})
 
     # K1: the inner product over the bit-major staging.
     words = RECORD_BYTES // 4
     groups = NUM_RECORDS // 32
     db_perm = rand_words(32, groups, words)
     packed = rand_words(NUM_QUERIES, groups)
-    got = ipk.xor_inner_product_packed(db_perm, packed)
-    want = ipk.xor_inner_product_packed_plain(db_perm, packed)
-    torch.cuda.synchronize()
-    ops = NUM_QUERIES * NUM_RECORDS * words  # one 3-input logic op each
-    nbytes = 4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * words)
-    b_ms, b_by = bound(ops, nbytes)
-    k1 = {"err": require_equal("xor_inner_product", got, want),
-          "ms": cuda_time_ms(lambda: ipk.xor_inner_product_packed(db_perm, packed), reps=20),
-          "plain_ms": cuda_time_ms(lambda: ipk.xor_inner_product_packed_plain(db_perm, packed), reps=3, warmup=1),
-          "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes}
-    results["xor_inner_product"] = k1
+    results["xor_inner_product"] = measure(
+        "xor_inner_product",
+        lambda: ipk.xor_inner_product_packed(db_perm, packed),
+        lambda: ipk.xor_inner_product_packed_plain(db_perm, packed),
+        NUM_QUERIES * NUM_RECORDS * words,  # one 3-input logic op each
+        4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * words))
     emit({"phase": "kernel", "name": "xor_inner_product",
           "shape": [NUM_QUERIES, NUM_RECORDS, words],
-          "launches_per_batch": 1, **k1})
-    del db_perm, packed, got, want
+          "launches_per_batch": 1, **results["xor_inner_product"]})
+    del db_perm, packed
 
     # 4. A small database served on the card and by the plain versions.
     small = [rng.bytes(32) for _ in range(1 << 12)]
     client = DenseDpfPirClient.create(len(small))
     idx = [int(i) for i in rng.integers(0, len(small), 40)]
     reqs = client.create_plain_requests(idx)
-    gpu_srv = DenseDpfPirServer.create_plain(DenseDpfPirDatabase(small))
-    cpu_srv = DenseDpfPirServer.create_plain(
-        DenseDpfPirDatabase(small, device="cpu"), device="cpu")
-    shares = []
-    for party, req in enumerate(reqs):
-        a = gpu_srv.handle_plain_request(req).dpf_pir_response.masked_response
-        b = cpu_srv.handle_plain_request(req).dpf_pir_response.masked_response
-        if a != b:
-            raise AssertionError(f"party {party}: card and plain responses differ")
-        shares.append(a)
-    for s0, s1, i in zip(*shares, idx):
-        if bytes(x ^ y for x, y in zip(s0, s1)) != small[i]:
-            raise AssertionError(f"small path: record {i} does not reconstruct")
+    gpu_db = DenseDpfPirDatabase(small)
+    cpu_db = DenseDpfPirDatabase(small, device="cpu")
+    for mode in EXPANSION_MODES:
+        gpu_srv = DenseDpfPirServer.create_plain(gpu_db, expansion=mode)
+        cpu_srv = DenseDpfPirServer.create_plain(cpu_db, device="cpu", expansion=mode)
+        shares = []
+        for party, req in enumerate(reqs):
+            a = gpu_srv.handle_plain_request(req).dpf_pir_response.masked_response
+            b = cpu_srv.handle_plain_request(req).dpf_pir_response.masked_response
+            if a != b:
+                raise AssertionError(f"{mode} party {party}: card and plain responses differ")
+            shares.append(a)
+        for s0, s1, i in zip(*shares, idx):
+            if bytes(x ^ y for x, y in zip(s0, s1)) != small[i]:
+                raise AssertionError(f"small path ({mode}): record {i} does not reconstruct")
     emit({"phase": "small_path", "records": len(small), "queries": len(idx),
-          "card_equals_plain": True, "reconstructed": True})
+          "modes": list(EXPANSION_MODES), "card_equals_plain": True,
+          "reconstructed": True})
 
-    # 5. The main path at 2^20 x 256 B, 128 queries.
+    # 5. The main path at 2^20 x 256 B, 128 queries, in each mode.
     t0 = time.perf_counter()
     data = rng.bytes(NUM_RECORDS * RECORD_BYTES)
     records = [data[i * RECORD_BYTES:(i + 1) * RECORD_BYTES]
@@ -285,100 +491,133 @@ def main() -> int:
     db.staged()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    server = DenseDpfPirServer.create_plain(db)
     client = DenseDpfPirClient.create(NUM_RECORDS)
     idx = [int(i) for i in rng.integers(0, NUM_RECORDS, NUM_QUERIES)]
     t0 = time.perf_counter()
     r0, r1 = client.create_plain_requests(idx)
     keygen_s = time.perf_counter() - t0
+    expected = {
+        "walk": {"walk_descend": 4, "xor_inner_product": 2},
+        "tail": {"expand_head": 2, "expand_tail": 2, "xor_inner_product": 2},
+        "level": {"expand_level": 2 * expand_levels, "value_hash": 2,
+                  "xor_inner_product": 2},
+    }
+    launches, first_s, servers = {}, {}, {}
 
-    def serve():
+    def serve(server):
         s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
         s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
         torch.cuda.synchronize()
         return s0, s1
 
-    serve()  # warm-up
-    cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    s0, s1 = serve()
-    first_s = time.perf_counter() - t0
-    launches = dict(cuda_lib.LAUNCHES)
-    expected = {"expand_level": 2 * expand_levels, "value_hash": 2,
-                "xor_inner_product": 2}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected}")
-    for a, b, i in zip(s0, s1, idx):
-        if bytes(x ^ y for x, y in zip(a, b)) != records[i]:
-            raise AssertionError(f"main path: record {i} does not reconstruct")
-    batch_s = []
-    for _ in range(5):
+    for mode in EXPANSION_MODES:
+        server = DenseDpfPirServer.create_plain(db, expansion=mode)
+        servers[mode] = server
+        serve(server)  # warm-up
+        cuda_lib.reset_launch_counts()
         t0 = time.perf_counter()
-        serve()
-        batch_s.append(time.perf_counter() - t0)
-    med = statistics.median(batch_s)
-    emit({"phase": "main_path", "records": NUM_RECORDS,
-          "record_bytes": RECORD_BYTES, "queries": NUM_QUERIES,
-          "reconstructed": NUM_QUERIES, "launches": launches,
-          "setup_s": setup_s, "keygen_s": keygen_s, "counted_batch_s": first_s,
-          "batch_s": batch_s, "queries_per_sec": NUM_QUERIES / med,
-          "device": smi_line})
+        s0, s1 = serve(server)
+        first_s[mode] = time.perf_counter() - t0
+        launches[mode] = dict(cuda_lib.LAUNCHES)
+        want = {name: expected[mode].get(name, 0) for name in cuda_lib.LAUNCHES}
+        if launches[mode] != want:
+            raise AssertionError(f"{mode}: launch counts {launches[mode]}, expected {want}")
+        for a, b, i in zip(s0, s1, idx):
+            if bytes(x ^ y for x, y in zip(a, b)) != records[i]:
+                raise AssertionError(f"main path ({mode}): record {i} does not reconstruct")
+    # Batches of the three modes in turns (forward, then backward), so
+    # that the shared host's drift falls on all of them alike.
+    batch_s = {mode: [] for mode in EXPANSION_MODES}
+    for rnd in range(16):
+        order = EXPANSION_MODES if rnd % 2 == 0 else EXPANSION_MODES[::-1]
+        for mode in order:
+            t0 = time.perf_counter()
+            serve(servers[mode])
+            batch_s[mode].append(time.perf_counter() - t0)
+    qps = {mode: NUM_QUERIES / statistics.median(batch_s[mode])
+           for mode in EXPANSION_MODES}
+    # The share of rounds in which a mode's batch beat another's. The
+    # host's spread within a run is wider than the modes' differences, so
+    # a mode counts as fastest only if it wins nine rounds in ten against
+    # each other mode; `fastest` is null when no mode does.
+    wins = {a: {b: sum(x < y for x, y in zip(batch_s[a], batch_s[b]))
+                / len(batch_s[a]) for b in EXPANSION_MODES if b != a}
+            for a in EXPANSION_MODES}
+    fastest = next((a for a in EXPANSION_MODES if min(wins[a].values()) >= 0.9),
+                   None)
+    for mode in EXPANSION_MODES:
+        emit({"phase": "main_path", "expansion": mode, "plan": plans[mode],
+              "records": NUM_RECORDS, "record_bytes": RECORD_BYTES,
+              "queries": NUM_QUERIES, "reconstructed": NUM_QUERIES,
+              "launches": launches[mode], "setup_s": setup_s,
+              "keygen_s": keygen_s, "counted_batch_s": first_s[mode],
+              "batch_s": batch_s[mode], "queries_per_sec": qps[mode],
+              "round_wins": wins[mode], "device": smi_line})
 
-    # Where one party's batch spends its time: the server's three steps,
-    # each ended by a synchronize (host clock).
-    steps = {"stage_keys_ms": [], "expand_ms": [], "inner_product_ms": []}
-    for _ in range(5):
-        t0 = time.perf_counter()
-        staged = stage_keys(
-            r0.plain_request.dpf_keys, server.walk_levels, device=dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        sel = evaluate_selection_blocks_planes(
-            *staged, expand_levels=server.expand_levels,
-            num_blocks=db.num_selection_blocks)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        db.inner_product_with(sel)
-        t3 = time.perf_counter()
-        for k, v in zip(steps, (t1 - t0, t2 - t1, t3 - t2)):
-            steps[k].append(v * 1e3)
-    # Device busy share of one party's batch: the kernels' device time in
-    # a profiler trace over the wall time of the call.
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.handle_plain_request(r0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(e.device_time for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    emit({"phase": "main_path_breakdown", "party_batch": NUM_QUERIES,
-          **{k: statistics.median(v) for k, v in steps.items()},
-          "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
-          "kernel_ms": {"expand_level": results["expand_level"]["ms"],
-                        "value_hash": results["value_hash"]["ms"],
-                        "xor_inner_product": results["xor_inner_product"]["ms"]}})
+    # Where one party's batch spends its time in each mode: the server's
+    # three steps, each ended by a synchronize (host clock), and the
+    # device's busy share of one request (the kernels' device time in a
+    # profiler trace over the wall time of the call).
+    for mode in EXPANSION_MODES:
+        server = servers[mode]
+        steps = {"stage_keys_ms": [], "expand_ms": [], "inner_product_ms": []}
+        for _ in range(5):
+            t0 = time.perf_counter()
+            staged = stage_keys(
+                r0.plain_request.dpf_keys, server.walk_levels, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sel = evaluate_selection_blocks_planes(
+                *staged, expand_levels=server.expand_levels,
+                num_blocks=db.num_selection_blocks, mode=mode)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            db.inner_product_with(sel)
+            t3 = time.perf_counter()
+            for k, v in zip(steps, (t1 - t0, t2 - t1, t3 - t2)):
+                steps[k].append(v * 1e3)
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            server.handle_plain_request(r0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(e.device_time for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        mode_kernels = [k for k, n in launches[mode].items() if n]
+        emit({"phase": "main_path_breakdown", "expansion": mode,
+              "default": mode == DEFAULT_EXPANSION, "party_batch": NUM_QUERIES,
+              **{k: statistics.median(v) for k, v in steps.items()},
+              "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "device_idle_share": 1.0 - busy_ms / wall_ms,
+              "kernel_device_ms": {k: results[k]["device_ms"] for k in mode_kernels},
+              "queries_per_sec": qps[mode], "fastest": fastest})
 
-    # 6. Every ported kernel.
+    # 6. Every ported kernel, with its launches from the run of the mode
+    # that launches it.
     rows = [
-        ("expand_level", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:134"),
-        ("value_hash", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:333"),
-        ("xor_inner_product", "csrc/inner_product.cu", "ops/inner_product_pallas.py:285"),
+        ("expand_level", "level", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:134"),
+        ("value_hash", "level", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:333"),
+        ("xor_inner_product", DEFAULT_EXPANSION, "csrc/inner_product.cu",
+         "ops/inner_product_pallas.py:285"),
+        ("walk_descend", "walk", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:649"),
+        ("expand_tail", "tail", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:392"),
+        ("expand_head", "tail", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:453"),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"distributed_point_functions_tpu_torch/{src}",
          "replaces": f"distributed_point_functions_tpu/{tpu}",
-         "launches": launches[name],
+         "launches": launches[mode][name],
          "max_abs_err": results[name]["err"],
          "ms": results[name]["ms"],
+         "device_ms": results[name]["device_ms"],
          "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
          "library_ms": None}
-        for name, src, tpu in rows
+        for name, mode, src, tpu in rows
     ]})
 
     # 7. The contract line.

@@ -5,12 +5,8 @@
 // one [all-left; all-right] expansion level. K3 `value_hash` replaces
 // `_value_kernel` (same file, :333): the leaf MMO hash with the value key
 // plus the value correction. Plain PyTorch versions:
-// `ops/expand_planes.py:expand_level_plain` / `value_hash_plain`.
-//
-// Layout: state int32/uint32 [16, 8, G] -- plane p = 8 * byte + bit, word
-// m of a plane holds that bit for lanes 32m..32m+31 (lane = node * 32KG +
-// key). Per-key corrections are packed at [16, 8, KG] and [KG] words and
-// are read at column m % KG (no tiling in memory).
+// `ops/expand_planes.py:expand_level_plain` / `value_hash_plain`. The
+// layout and the per-column bodies are in expand_body.cuh.
 //
 // What bounds it on this card: integer logic. One child of one word
 // column is a whole AES-128 on 128 words (~32k 32-bit XOR/AND/NOT: 160
@@ -34,101 +30,9 @@
 // plain C interface. Without __CUDACC__ (a host C++ compiler) the same
 // column bodies build into host entry points that the CPU tests run.
 
-#include <cstdint>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#else
-#define __device__
-#define __forceinline__ inline
-#endif
-
-#include "aes_generated.cuh"
+#include "expand_body.cuh"
 
 namespace {
-
-__device__ __forceinline__ void aes_encrypt_fixed(uint32_t (&s)[128], int key) {
-  add_round_key(s, key, 0);
-#ifdef __CUDACC__
-#pragma unroll 1
-#endif
-  for (int rnd = 1; rnd <= 10; ++rnd) {
-    sub_bytes(s);
-    if (rnd < 10) {
-      shift_rows_mix_columns(s);
-    } else {
-      shift_rows(s);
-    }
-    add_round_key(s, key, rnd);
-  }
-}
-
-// Plane p of sigma(x) = (hi ^ lo, hi) for word column m of the [128, G]
-// planes at `in`: planes 0-63 (bytes 0-7) take hi = planes 64-127, planes
-// 64-127 take hi ^ lo.
-__device__ __forceinline__ uint32_t sigma_plane(const uint32_t* __restrict__ in,
-                                                int64_t g, int64_t m, int p) {
-  return p < 64 ? in[(p + 64) * g + m] : in[p * g + m] ^ in[(p - 64) * g + m];
-}
-
-// Child `child` (0 left, 1 right) of word column m: MMO hash with the
-// child's key, seed correction under the parent control word, plane 0
-// (the seed LSB) out as the child control word and cleared, then the
-// direction correction. Writes column child * G + m of the [128, 2G]
-// output and of the [2G] control words.
-__device__ __forceinline__ void expand_column(
-    const uint32_t* __restrict__ state, const uint32_t* __restrict__ ctrl,
-    const uint32_t* __restrict__ cwp, const uint32_t* __restrict__ cwl,
-    const uint32_t* __restrict__ cwr, uint32_t* __restrict__ out_state,
-    uint32_t* __restrict__ out_ctrl, int64_t g, int64_t kg, int64_t m,
-    int child) {
-  const int64_t k = m % kg;
-  const uint32_t c = ctrl[m];
-  uint32_t s[128];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-  for (int p = 0; p < 128; ++p) s[p] = sigma_plane(state, g, m, p);
-  aes_encrypt_fixed(s, child == 0 ? kKeyLeft : kKeyRight);
-  uint32_t* out = out_state + child * g + m;
-  uint32_t t = 0;
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-  for (int p = 0; p < 128; ++p) {
-    const uint32_t v = s[p] ^ sigma_plane(state, g, m, p) ^ (cwp[p * kg + k] & c);
-    if (p == 0) {
-      t = v;
-      out[0] = 0u;
-    } else {
-      out[p * 2 * g] = v;
-    }
-  }
-  const uint32_t dir = child == 0 ? cwl[k] : cwr[k];
-  out_ctrl[child * g + m] = t ^ (c & dir);
-}
-
-// Leaf value of word column m: MMO hash with the value key, XOR the value
-// correction under the control word.
-__device__ __forceinline__ void value_column(
-    const uint32_t* __restrict__ state, const uint32_t* __restrict__ ctrl,
-    const uint32_t* __restrict__ vc, uint32_t* __restrict__ out, int64_t g,
-    int64_t kg, int64_t m) {
-  const int64_t k = m % kg;
-  const uint32_t c = ctrl[m];
-  uint32_t s[128];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-  for (int p = 0; p < 128; ++p) s[p] = sigma_plane(state, g, m, p);
-  aes_encrypt_fixed(s, kKeyValue);
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-  for (int p = 0; p < 128; ++p) {
-    out[p * g + m] = s[p] ^ sigma_plane(state, g, m, p) ^ (vc[p * kg + k] & c);
-  }
-}
 
 #ifdef __CUDACC__
 constexpr int kThreads = 64;
@@ -145,7 +49,7 @@ expand_level_kernel(const uint32_t* __restrict__ state,
   if (i >= 2 * g) return;
   const int child = i >= g ? 1 : 0;
   expand_column(state, ctrl, cwp, cwl, cwr, out_state, out_ctrl, g, kg,
-                i - child * g, child);
+                i - child * g, child, i);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -192,7 +96,7 @@ extern "C" int dpf_expand_level_host(const uint32_t* state, const uint32_t* ctrl
   for (long long i = 0; i < 2 * g; ++i) {
     const int child = i >= g ? 1 : 0;
     expand_column(state, ctrl, cwp, cwl, cwr, out_state, out_ctrl, g, kg,
-                  i - child * g, child);
+                  i - child * g, child, i);
   }
   return 0;
 }

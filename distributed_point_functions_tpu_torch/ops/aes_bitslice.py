@@ -1,10 +1,10 @@
 """Fully-bitsliced AES-128 in PyTorch: 32 blocks per int32 word.
 
 The port of the JAX package's `ops/aes_bitslice.py` plane ops. These are
-the **plain versions** of the expansion kernels (K2 `expand_level` and K3
-`value_hash`, `ops/expand_planes.py`): the wrappers run them for CPU
-tensors, and `chip_smoke.py` holds the CUDA kernels against them on the
-card.
+the core of the **plain versions** of the expansion kernels (K2-K6,
+`ops/expand_planes.py`; `aes_rounds_select_planes` is K4's per-lane key
+select): the wrappers run them for CPU tensors, and `chip_smoke.py` holds
+the CUDA kernels against them on the card.
 
 * state = `int32[16 bytes, 8 bits, G]` where word `g` of plane (j, i)
   holds bit i of byte j for blocks 32g..32g+31 (one bit per block);
@@ -122,24 +122,47 @@ def _rk_masks(round_keys: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(-bits[..., None]).to(device)
 
 
+def _aes_rounds(state: torch.Tensor, round_key) -> torch.Tensor:
+    """AES-128 rounds on [16, 8, G] planes; `round_key(rnd)` gives the
+    [16, 8, 1 or G] key planes of round `rnd`."""
+    shift_rows = torch.from_numpy(_SHIFT_ROWS.astype(np.int64)).to(
+        state.device
+    )
+    state = state ^ round_key(0)
+    for rnd in range(1, 10):
+        state = _sub_bytes_planes(state)
+        state = state[shift_rows]
+        state = _mix_columns_planes(state)
+        state = state ^ round_key(rnd)
+    state = _sub_bytes_planes(state)
+    state = state[shift_rows]
+    return state ^ round_key(10)
+
+
 def aes_rounds_planes(
     round_keys: np.ndarray, state: torch.Tensor
 ) -> torch.Tensor:
     """The AES-128 round function on plane-layout state [16, 8, G]
     (fixed key)."""
     masks = _rk_masks(round_keys, state.device)
-    shift_rows = torch.from_numpy(_SHIFT_ROWS.astype(np.int64)).to(
-        state.device
-    )
-    state = state ^ masks[0]
-    for rnd in range(1, 10):
-        state = _sub_bytes_planes(state)
-        state = state[shift_rows]
-        state = _mix_columns_planes(state)
-        state = state ^ masks[rnd]
-    state = _sub_bytes_planes(state)
-    state = state[shift_rows]
-    return state ^ masks[10]
+    return _aes_rounds(state, lambda rnd: masks[rnd])
+
+
+def aes_rounds_select_planes(
+    round_keys0: np.ndarray,
+    round_keys1: np.ndarray,
+    sel: torch.Tensor,
+    state: torch.Tensor,
+) -> torch.Tensor:
+    """AES-128 rounds on plane state [16, 8, G] with a per-block key
+    choice from a packed select mask (int32[G]: bit i of word g selects
+    the key of block 32g+i; 0 -> round_keys0, 1 -> round_keys1). One AES
+    pass: each round-key plane is `k0 & ~sel | k1 & sel`. The plain core
+    of K4 `walk_descend` (the JAX package's `aes_rounds_select_planes`)."""
+    m0 = _rk_masks(round_keys0, state.device)
+    m1 = _rk_masks(round_keys1, state.device)
+    nsel = ~sel
+    return _aes_rounds(state, lambda rnd: (m0[rnd] & nsel) | (m1[rnd] & sel))
 
 
 def sigma_planes(state: torch.Tensor) -> torch.Tensor:

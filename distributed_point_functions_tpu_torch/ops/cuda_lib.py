@@ -32,15 +32,18 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 
-SOURCES = ("expand_planes.cu", "inner_product.cu")
+SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu")
 LIB_NAME = "libdpf_kernels.so"
-HEADERS = ("aes_generated.cuh",)
+HEADERS = ("aes_generated.cuh", "expand_body.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"expand_level": 0, "value_hash": 0, "xor_inner_product": 0}
+LAUNCHES = {
+    "expand_level": 0, "value_hash": 0, "xor_inner_product": 0,
+    "walk_descend": 0, "expand_head": 0, "expand_tail": 0,
+}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -48,6 +51,8 @@ _SIGNATURES = {
     "dpf_expand_level": [_P] * 7 + [_I64, _I64, _P],
     "dpf_value_hash": [_P] * 4 + [_I64, _I64, _P],
     "dpf_xor_inner_product": [_P] * 3 + [_I64, _I64, _I64, ctypes.c_int, _P],
+    "dpf_walk_descend": [_P] * 8 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
+    "dpf_expand_levels": [_P] * 12 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,32 +1,44 @@
-"""Wrappers of the expansion kernels K2 `expand_level` and K3 `value_hash`.
+"""Wrappers of the expansion kernels K2 to K6.
 
 The counterpart of the JAX package's `ops/expand_planes_pallas.py`.
 
-* `expand_level` -- one [all-left; all-right] expansion level: sigma,
+* `expand_level` (K2) -- one [all-left; all-right] expansion level: sigma,
   fixed-key AES MMO with both `RK_LEFT` and `RK_RIGHT`, seed correction
   under the parent control bit, the LSB plane out as the child control
   bit (and cleared), then the direction correction. Replaces the TPU
   kernel `_level_kernel` (`ops/expand_planes_pallas.py:134`).
-* `value_hash` -- the leaf MMO hash with `RK_VALUE`, XORed with the
+* `value_hash` (K3) -- the leaf MMO hash with `RK_VALUE`, XORed with the
   value correction under the control bit. Replaces `_value_kernel`
   (`ops/expand_planes_pallas.py:333`).
+* `walk_descend` (K4) -- r levels at the constant width G0 << r, each
+  column hashing once with the left or right key as its leaf offset
+  says (select-key AES), an optional value hash, leaves in natural
+  order. Replaces `_walk_kernel` (`ops/expand_planes_pallas.py:649`).
+* `expand_tail` (K5) -- the last r doubling levels and the value hash in
+  one launch, leaves in the tiled order of `tail_node_permutation`.
+  Replaces `_tail_kernel` (`ops/expand_planes_pallas.py:392`).
+* `expand_head` (K6) -- the first r doubling levels over the whole
+  narrow width in one launch, doubling order. Replaces `_head_kernel`
+  (`ops/expand_planes_pallas.py:453`).
 
-For a CPU tensor each wrapper runs its plain PyTorch version
-(`expand_level_plain`, `value_hash_plain`, built on `aes_bitslice.py`);
-for a CUDA tensor it launches the hand-written kernel
-(`csrc/expand_planes.cu`) or raises. There is no fallback from one to
-the other.
+For a CPU tensor each wrapper runs its plain PyTorch version (the
+`*_plain` functions, built on `aes_bitslice.py`: K4-K6 are K2's level and
+K3's hash composed); for a CUDA tensor it launches the hand-written kernel
+(`csrc/expand_planes.cu`, `csrc/expand_fused.cu`) or raises. There is no
+fallback from one to the other.
 
 Bound on the H100: 32-bit integer logic. A child of one 32-lane word
 column is a whole bitsliced AES (~32k word ops) against 1.5 KB of state
 traffic. The kernels therefore keep the 128-word state in registers,
 one thread per (child, word column), compile the fixed round keys in,
 and re-read the input column for the MMO feed-forward rather than keep
-sigma live (see the source note for registers and spills).
+sigma live (see the sources for the fused kernels' designs, registers
+and spills).
 
 Per-key corrections stay packed at [16, 8, KG] planes and [KG] words
-(KG = padded keys / 32); lane layout is node-major (lane = node * 32KG +
-key), so a lane's correction is at column m % KG.
+(KG = padded keys / 32), one such row per level for K4-K6 ([r, 16, 8,
+KG], [r, KG]); lane layout is node-major (lane = node * 32KG + key), so a
+lane's correction is at column m % KG.
 """
 
 from __future__ import annotations
@@ -36,7 +48,12 @@ import torch
 
 from .. import keys as fixed_keys
 from . import cuda_lib
-from .aes_bitslice import aes_rounds_planes, mmo_hash_planes, sigma_planes
+from .aes_bitslice import (
+    aes_rounds_planes,
+    aes_rounds_select_planes,
+    mmo_hash_planes,
+    sigma_planes,
+)
 
 
 def tile_keys(words: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -184,3 +201,204 @@ def tail_node_permutation(
         chunks.append(m)
     order = np.concatenate(chunks) if chunks else np.zeros(0, np.int64)
     return order, np.argsort(order)
+
+
+def walk_leaf_order(entry_order: np.ndarray, r: int) -> np.ndarray:
+    """Leaf order after a walk descent of `r` levels (the JAX package's
+    `pir/dense_eval_planes.py:walk_leaf_order`): each entry node's 2^r
+    leaves exit consecutively in offset order, so order[p * 2^r + off] =
+    entry_order[p] * 2^r + off."""
+    m = np.asarray(entry_order, dtype=np.int64)
+    return (
+        m[:, None] * (1 << r) + np.arange(1 << r, dtype=np.int64)[None, :]
+    ).reshape(-1)
+
+
+def replicate_entry_planes(state, ctrl, node_lanes: int, times: int):
+    """[16, 8, n * node_lanes] entry planes -> [16, 8, n * times *
+    node_lanes] with each node's block repeated `times` times in a row
+    (and the control words likewise): the walk descent's entry, where
+    every column already holds its leaf's ancestor."""
+    p, q, g = state.shape
+    n = g // node_lanes
+    state_r = state.reshape(p, q, n, 1, node_lanes).expand(
+        p, q, n, times, node_lanes
+    ).reshape(p, q, n * times * node_lanes)
+    ctrl_r = ctrl.reshape(n, 1, node_lanes).expand(n, times, node_lanes)
+    return state_r, ctrl_r.reshape(-1)
+
+
+def walk_descend_plain(state, ctrl, cwp, cwl, cwr, vc=None, *,
+                       value_hash=False, node_lanes=None):
+    """Plain version of K4: replicate the entry 2^r-fold, then at each
+    level hash every column once with the key its leaf offset selects
+    (bit r-1-i of the offset at level i, most significant first)."""
+    r, kg = cwp.shape[0], cwp.shape[-1]
+    nl = kg if node_lanes is None else node_lanes
+    g0 = state.shape[-1]
+    w = g0 << r
+    state, ctrl = replicate_entry_planes(state, ctrl, nl, 1 << r)
+    off = torch.arange(1 << r, device=state.device).repeat_interleave(nl)
+    off = off.repeat(g0 // nl)
+    for i in range(r):
+        sel = -((off >> (r - 1 - i)) & 1).to(torch.int32)  # 0 or ~0 a column
+        sig = sigma_planes(state)
+        h = aes_rounds_select_planes(fixed_keys.RK_LEFT, fixed_keys.RK_RIGHT, sel, sig)
+        h = h ^ sig ^ (tile_keys(cwp[i], w) & ctrl[None, None, :])
+        t_new = h[0, 0].clone()
+        h[0, 0] = 0
+        cw_dir = (tile_keys(cwl[i], w) & ~sel) | (tile_keys(cwr[i], w) & sel)
+        state, ctrl = h, t_new ^ (ctrl & cw_dir)
+    if value_hash:
+        return value_hash_plain(state, ctrl, vc), ctrl
+    return state, ctrl
+
+
+def expand_head_plain(state, ctrl, cwp, cwl, cwr):
+    """Plain version of K6: r levels of `expand_level_plain`."""
+    for i in range(cwp.shape[0]):
+        state, ctrl = expand_level_plain(state, ctrl, cwp[i], cwl[i], cwr[i])
+    return state, ctrl
+
+
+def expand_tail_plain(state, ctrl, cwp, cwl, cwr, vc, tile_lanes: int):
+    """Plain version of K5: each entry tile of `tile_lanes` columns
+    through r levels of `expand_level_plain` and `value_hash_plain`, the
+    tiles' leaves concatenated in entry order."""
+    values, ctrls = [], []
+    for lo in range(0, state.shape[-1], tile_lanes):
+        s, c = expand_head_plain(
+            state[..., lo:lo + tile_lanes], ctrl[lo:lo + tile_lanes],
+            cwp, cwl, cwr,
+        )
+        values.append(value_hash_plain(s, c, vc))
+        ctrls.append(c)
+    return torch.cat(values, dim=-1), torch.cat(ctrls)
+
+
+def _check_fused_args(state, ctrl, cwp, cwl, cwr, vc):
+    """(G0, KG, r) of a fused launch; raises on what the kernels do not
+    take."""
+    if state.ndim != 3 or tuple(state.shape[:2]) != (16, 8):
+        raise ValueError(f"state must be [16, 8, G], got {tuple(state.shape)}")
+    if cwp.ndim != 4 or tuple(cwp.shape[1:3]) != (16, 8):
+        raise ValueError(f"correction planes must be [r, 16, 8, KG], got {tuple(cwp.shape)}")
+    g0 = state.shape[-1]
+    r, kg = cwp.shape[0], cwp.shape[-1]
+    if not 1 <= r <= 30:
+        raise ValueError(f"level count {r} must be in [1, 30]")
+    if kg <= 0 or g0 % kg:
+        raise ValueError(f"correction width {kg} must divide the state width {g0}")
+    dev = state.device
+    _check_words(state, "state", (16, 8, g0), dev)
+    _check_words(ctrl, "ctrl", (g0,), dev)
+    _check_words(cwp, "correction planes", (r, 16, 8, kg), dev)
+    _check_words(cwl, "left correction words", (r, kg), dev)
+    _check_words(cwr, "right correction words", (r, kg), dev)
+    if vc is not None:
+        _check_words(vc, "value correction", (16, 8, kg), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return g0, kg, r
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def walk_descend(state, ctrl, cwp, cwl, cwr, vc=None, *, value_hash=False,
+                 node_lanes=None):
+    """K4: an r-level walk descent at constant width.
+
+    state: int32[16, 8, G0]; ctrl: int32[G0]; cwp: int32[r, 16, 8, KG];
+    cwl / cwr: int32[r, KG]; vc (with `value_hash`): int32[16, 8, KG].
+    `node_lanes` is the column width of one tree node's block (default
+    KG). Returns (planes int32[16, 8, G0 << r], ctrl int32[G0 << r]) in
+    natural leaf order (leaf = entry node * 2^r + offset); with
+    `value_hash` the planes are the leaf values."""
+    g0, kg, r = _check_fused_args(state, ctrl, cwp, cwl, cwr, vc)
+    nl = kg if node_lanes is None else node_lanes
+    if nl <= 0 or nl % kg or g0 % nl:
+        raise ValueError(
+            f"node lanes {nl} must be a multiple of KG {kg} and divide G0 {g0}"
+        )
+    if value_hash and vc is None:
+        raise ValueError("value_hash needs the value correction vc")
+    if state.device.type == "cpu":
+        return walk_descend_plain(state, ctrl, cwp, cwl, cwr, vc,
+                                  value_hash=value_hash, node_lanes=nl)
+    lib = cuda_lib.library()
+    w = g0 << r
+    out = torch.empty((16, 8, w), dtype=torch.int32, device=state.device)
+    out_ctrl = torch.empty((w,), dtype=torch.int32, device=state.device)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = lib.dpf_walk_descend(
+            state.data_ptr(), ctrl.data_ptr(), cwp.data_ptr(), cwl.data_ptr(),
+            cwr.data_ptr(), _ptr(vc if value_hash else None), out.data_ptr(),
+            out_ctrl.data_ptr(), g0, kg, nl, r, int(value_hash), stream,
+        )
+    cuda_lib.LAUNCHES["walk_descend"] += 1
+    cuda_lib.check(err, "walk_descend")
+    return out, out_ctrl
+
+
+def _launch_doubling(name, state, ctrl, cwp, cwl, cwr, vc, g0, kg, r, tile):
+    """One cooperative launch of `dpf_expand_levels` (K5 with a value
+    correction, K6 without); returns (planes, ctrl) at width G0 << r."""
+    lib = cuda_lib.library()
+    dev = state.device
+    w = g0 << r
+    # Ping-pong scratch: every level but the last fits in half the leaf
+    # width; K5's last level goes to scratch too, before the value hash.
+    half = w if vc is not None else w // 2
+    bufs = [torch.empty((128 * half,), dtype=torch.int32, device=dev) for _ in range(2)]
+    cbufs = [torch.empty((half,), dtype=torch.int32, device=dev) for _ in range(2)]
+    out = torch.empty((16, 8, w), dtype=torch.int32, device=dev)
+    out_ctrl = torch.empty((w,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dpf_expand_levels(
+            state.data_ptr(), ctrl.data_ptr(), cwp.data_ptr(), cwl.data_ptr(),
+            cwr.data_ptr(), _ptr(vc), bufs[0].data_ptr(), cbufs[0].data_ptr(),
+            bufs[1].data_ptr(), cbufs[1].data_ptr(), out.data_ptr(),
+            out_ctrl.data_ptr(), g0, kg, tile, r, int(vc is not None), stream,
+        )
+    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.check(err, name)
+    return out, out_ctrl
+
+
+def expand_head(state, ctrl, cwp, cwl, cwr):
+    """K6: the first r doubling levels in one launch.
+
+    state: int32[16, 8, G0]; ctrl: int32[G0]; cwp: int32[r, 16, 8, KG];
+    cwl / cwr: int32[r, KG]. Returns (state int32[16, 8, G0 << r], ctrl
+    int32[G0 << r]), equal to r successive `expand_level` calls."""
+    g0, kg, r = _check_fused_args(state, ctrl, cwp, cwl, cwr, None)
+    if state.device.type == "cpu":
+        return expand_head_plain(state, ctrl, cwp, cwl, cwr)
+    return _launch_doubling("expand_head", state, ctrl, cwp, cwl, cwr, None,
+                            g0, kg, r, g0)
+
+
+def expand_tail(state, ctrl, cwp, cwl, cwr, vc, tile_lanes: int):
+    """K5: the last r doubling levels and the leaf value hash in one
+    launch.
+
+    Arguments as `expand_head`, plus vc: int32[16, 8, KG] and
+    `tile_lanes`, the entry tile width (a positive multiple of KG; the
+    last tile may be narrower). Each tile doubles on its own and the
+    tiles' leaves concatenate in entry order: compose
+    `tail_node_permutation(order, r, tile_lanes // KG)` to recover
+    natural order. Returns (values int32[16, 8, G0 << r], leaf ctrl
+    int32[G0 << r])."""
+    g0, kg, r = _check_fused_args(state, ctrl, cwp, cwl, cwr, vc)
+    if vc is None:
+        raise ValueError("expand_tail needs the value correction vc")
+    if tile_lanes <= 0 or tile_lanes % kg:
+        raise ValueError(f"tile_lanes {tile_lanes} must be a positive multiple of KG {kg}")
+    if state.device.type == "cpu":
+        return expand_tail_plain(state, ctrl, cwp, cwl, cwr, vc, tile_lanes)
+    return _launch_doubling("expand_tail", state, ctrl, cwp, cwl, cwr, vc,
+                            g0, kg, r, tile_lanes)

@@ -8,6 +8,8 @@ Nothing in the header is written by hand:
   constants folded and common subexpressions shared;
 * AddRoundKey is compiled in: for each fixed key (`keys.py`) and round,
   a set key bit flips its plane (`~`), a clear bit does nothing;
+* the select-key AddRoundKey of the walk descent composes each plane's
+  key bit from the left/right pair and a per-lane select word;
 * ShiftRows+MixColumns follow `aes_bitslice._mix_columns_planes` plane
   for plane.
 
@@ -267,6 +269,39 @@ def _render_round_keys() -> list:
     return lines
 
 
+def _render_round_keys_select() -> list:
+    """Per-lane choice of the left or right key, branch-free: the key
+    bit of a plane is `left & ~sel | right & sel`, so a plane where both
+    keys set the bit flips, one where only the left (right) key sets it
+    takes `~sel` (`sel`), and one where neither does is left alone (the
+    composition of the JAX package's `aes_rounds_select_planes`)."""
+    left = _rk_bits(fixed_keys.RK_LEFT)
+    right = _rk_bits(fixed_keys.RK_RIGHT)
+    lines = [
+        "// AddRoundKey with a per-lane key: sel bit 0 takes kKeyLeft's bit,",
+        "// sel bit 1 kKeyRight's (no branch on sel).",
+        "__device__ __forceinline__ void add_round_key_select(uint32_t (&s)[128], "
+        "uint32_t sel, int rnd) {",
+        "  const uint32_t nsel = ~sel;",
+        "  switch (rnd) {",
+    ]
+    for rnd in range(11):
+        ops = []
+        for j in range(16):
+            for i in range(8):
+                p = 8 * j + i
+                b0, b1 = left[rnd, j, i], right[rnd, j, i]
+                if b0 and b1:
+                    ops.append(f"s[{p}] = ~s[{p}];")
+                elif b0:
+                    ops.append(f"s[{p}] ^= nsel;")
+                elif b1:
+                    ops.append(f"s[{p}] ^= sel;")
+        lines.append(f"    case {rnd}: {' '.join(ops)} break;")
+    lines += ["    default: break;", "  }", "}"]
+    return lines
+
+
 def render_header() -> str:
     net, outputs = sbox_circuit()
     parts = [
@@ -283,6 +318,7 @@ def render_header() -> str:
         _render_shift_rows(),
         _render_shift_rows_mix_columns(),
         _render_round_keys(),
+        _render_round_keys_select(),
     ]
     return "\n\n".join("\n".join(p) for p in parts) + "\n"
 

@@ -1,17 +1,34 @@
-"""Plane-resident dense-PIR expansion on the per-level kernels.
+"""Plane-resident dense-PIR expansion and its dispatch over the kernels.
 
-The port of the JAX package's `pir/dense_eval_planes.py` in its per-level
-configuration (`level_kernel=True`, `head_levels=0`, `tail_levels=0`):
-transpose the key batch's subtree roots into bit-plane layout once, run
-`expand_levels` launches of K2 `expand_level` (sigma, both fixed-key MMO
-hashes, corrections, control bits; children ordered [all-left;
-all-right]), one launch of K3 `value_hash` for the leaf values, and
-transpose out once.
+The port of the JAX package's `pir/dense_eval_planes.py`
+(`_evaluate_selection_blocks_planes_jit` and the split rules): transpose
+the key batch's subtree roots into bit-plane layout once, expand
+`expand_levels` levels in up to three phases, hash the leaves, and
+transpose out once. `mode` picks the kernels, as the JAX package's
+`DPF_TPU_LEVEL_KERNEL` does on a TPU (here a keyword, never an
+environment variable, and without self-checks or a fallback: a failing
+kernel raises):
 
-Appending [all-left; all-right] per level leaves the leaves in
-bit-reversed order; the exit gather (argsort of the composed order from
-`tail_node_permutation`) restores natural block order, so the output is
-bit-identical to the JAX package's `evaluate_selection_blocks`.
+* `"walk"` -- a head of K4 `walk_descend` over the narrow entry levels
+  and a tail of K4 with the value hash;
+* `"tail"` -- a head of K6 `expand_head` and a tail of K5 `expand_tail`
+  (the last levels and the value hash, per entry tile);
+* `"level"` -- K2 `expand_level` per level and K3 `value_hash` (a K6 head
+  only when `head_levels` asks for one).
+
+Levels that neither the head nor the tail covers run on K2. The split
+follows the JAX defaults: the head fills levels until its exit width
+reaches `HEAD_MAX_LANES` word columns (2,048), at least 2 levels
+(`auto_head_count`); the walk tail takes `TAIL_LEVELS` (4) levels; the
+fused tail shrinks until its entry tile holds `TAIL_TILE_LANES` (128)
+columns (`tail_split`). `expansion_plan` takes other splits, and
+`evaluate_planned` runs one.
+
+Each phase leaves its leaves in its own order: doubling phases append
+[all-left; all-right] per level (per tile for K5), walk phases emit
+natural offsets. The exit gather is the argsort of the composed order
+(`exit_permutation`), so the output is bit-identical in every mode and
+split, and to the JAX package's `evaluate_selection_blocks`.
 
 Lane layout: node-major/key-minor (lane = node * nk + key) with nk padded
 to a multiple of 32, so each packed word holds 32 keys of one node and
@@ -21,12 +38,31 @@ per-key corrections stay packed at [16, 8, nk/32] (`pack_key_planes` /
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.aes_bitslice import limbs_to_planes, pack_select_bits, planes_to_limbs
-from ..ops.expand_planes import expand_level, tail_node_permutation, value_hash
+from ..ops.expand_planes import (
+    expand_head,
+    expand_level,
+    expand_tail,
+    tail_node_permutation,
+    value_hash,
+    walk_descend,
+    walk_leaf_order,
+)
+
+EXPANSION_MODES = ("walk", "tail", "level")
+# The JAX package's first choice. On the H100 no mode has served the main
+# path measurably faster than another (PERF.md: the host's spread is
+# wider than their differences); all give the same selections.
+DEFAULT_EXPANSION = "walk"
+HEAD_MAX_LANES = 2048
+TAIL_LEVELS = 4
+TAIL_TILE_LANES = 128
 
 
 def pack_key_planes(cw: torch.Tensor) -> torch.Tensor:
@@ -48,6 +84,97 @@ def pack_key_bits(bits: torch.Tensor) -> torch.Tensor:
     return pack_select_bits(bits)
 
 
+def auto_head_count(cap: int, entry_lanes: int, avail: int) -> int:
+    """Levels of the head (the JAX package's `_auto_head_count`): fill
+    levels until the exit width reaches `cap` columns; a 1-level head is
+    only a worse per-level launch, so the least is 2."""
+    if avail <= 0 or entry_lanes <= 0 or cap < 2 * entry_lanes:
+        return 0
+    head = min(avail, (cap // entry_lanes).bit_length() - 1)
+    return head if head >= 2 else 0
+
+
+def head_split(key_groups: int, a_levels: int, head_levels=None) -> int:
+    """How many of the `a_levels` levels above the tail the head covers
+    (the JAX package's `_head_split`): `head_levels` when given (at most
+    `a_levels`), else `auto_head_count` up to `HEAD_MAX_LANES`."""
+    if a_levels <= 0:
+        return 0
+    if head_levels is not None:
+        return max(0, min(head_levels, a_levels))
+    return auto_head_count(HEAD_MAX_LANES, key_groups, a_levels)
+
+
+def tail_split(key_groups: int, expand_levels: int,
+               requested_levels: int = TAIL_LEVELS,
+               target_lanes: int = TAIL_TILE_LANES) -> tuple:
+    """(tail_levels, tile_nodes) of the fused tail (the JAX package's
+    `_tail_split`): shrink the tail until its entry tile reaches the width
+    floor, min(128 columns, `target_lanes`, what the key-group packing can
+    express, the whole tree)."""
+    best = 1 << (max(1, target_lanes // key_groups).bit_length() - 1)
+    tail = min(requested_levels, expand_levels)
+    if tail <= 0:
+        return 0, 0
+    floor = min(128, target_lanes, best * key_groups,
+                key_groups << expand_levels)
+
+    def tile_nodes(a_levels):
+        return min(best, 1 << a_levels)
+
+    while tail > 1 and tile_nodes(expand_levels - tail) * key_groups < floor:
+        tail -= 1
+    return tail, tile_nodes(expand_levels - tail)
+
+
+def expansion_plan(mode: str, key_groups: int, expand_levels: int, *,
+                   head_levels=None, tail_levels=None,
+                   tail_tile_lanes=None) -> tuple:
+    """(head, tail, tile_nodes) levels of one expansion: `head` levels in
+    the head, `tail` in the tail (K5 tiles of `tile_nodes` entry nodes in
+    tail mode), K2 for the rest. The keywords default to the JAX
+    package's split; `head_levels=None` is the automatic head in walk and
+    tail mode and no head in level mode."""
+    if mode not in EXPANSION_MODES:
+        raise ValueError(f"mode must be one of {EXPANSION_MODES}, got {mode!r}")
+    requested = TAIL_LEVELS if tail_levels is None else tail_levels
+    if requested < 0 or (head_levels is not None and head_levels < 0):
+        raise ValueError("head_levels and tail_levels must not be negative")
+    tile_nodes = 0
+    if mode == "walk":
+        tail = min(requested, expand_levels)
+    elif mode == "tail":
+        target = TAIL_TILE_LANES if tail_tile_lanes is None else tail_tile_lanes
+        tail, tile_nodes = tail_split(key_groups, expand_levels, requested, target)
+    else:
+        if tail_levels:
+            raise ValueError("level mode has no fused tail; use mode='tail' or 'walk'")
+        tail = 0
+        head_levels = 0 if head_levels is None else head_levels
+    head = head_split(key_groups, expand_levels - tail, head_levels)
+    return head, tail, tile_nodes
+
+
+@functools.lru_cache(maxsize=64)
+def exit_permutation(expand_levels: int, head: int, tail: int,
+                     tile_nodes: int, walk: bool, num_blocks: int) -> np.ndarray:
+    """The exit gather of one plan: perm[g] = the position of natural leaf
+    g, the argsort of the composed phase orders (head: walk or doubling;
+    middle: doubling; tail: walk, or doubling per tile of `tile_nodes`
+    entry nodes), cut to `num_blocks`."""
+    order = np.zeros(1, dtype=np.int64)
+    if head:
+        order = (walk_leaf_order(order, head) if walk
+                 else tail_node_permutation(order, head, order.size)[0])
+    middle = expand_levels - head - tail
+    if middle:
+        order = tail_node_permutation(order, middle, order.size)[0]
+    if tail:
+        order = (walk_leaf_order(order, tail) if walk
+                 else tail_node_permutation(order, tail, tile_nodes)[0])
+    return np.argsort(order)[:num_blocks]
+
+
 def evaluate_selection_blocks_planes(
     seeds0: torch.Tensor,
     control0: torch.Tensor,
@@ -58,6 +185,7 @@ def evaluate_selection_blocks_planes(
     *,
     expand_levels: int,
     num_blocks: int,
+    mode: str = DEFAULT_EXPANSION,
 ) -> torch.Tensor:
     """Selection blocks for a batch of single-level 128-bit-XOR DPF keys.
 
@@ -66,10 +194,25 @@ def evaluate_selection_blocks_planes(
     L >= expand_levels; last_vc: int32[nk, 4]. All on one device; CUDA
     tensors run the kernels, CPU tensors their plain versions. The keys
     sit at the root of the covering subtree: the shared all-zeros prefix
-    above it was walked on the host while staging. Returns
-    int32[nk, num_blocks, 4], the first `num_blocks` leaves of each key's
-    subtree.
+    above it was walked on the host while staging. `mode` chooses the
+    kernels (module docstring), split as the JAX package splits; the
+    result is the same for every mode. Returns int32[nk, num_blocks, 4],
+    the first `num_blocks` leaves of each key's subtree.
     """
+    key_groups = -(-seeds0.shape[0] // 32)
+    return evaluate_planned(
+        seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
+        expand_levels=expand_levels, num_blocks=num_blocks, mode=mode,
+        plan=expansion_plan(mode, key_groups, expand_levels),
+    )
+
+
+def evaluate_planned(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
+                     *, expand_levels: int, num_blocks: int, mode: str,
+                     plan: tuple) -> torch.Tensor:
+    """`evaluate_selection_blocks_planes` with the (head, tail,
+    tile_nodes) split `plan` that `expansion_plan` gives for `mode` and
+    the keys' padded key-group count."""
     nk = seeds0.shape[0]
     pad_keys = (-nk) % 32
     if pad_keys:
@@ -80,42 +223,47 @@ def evaluate_selection_blocks_planes(
         cw_right = F.pad(cw_right, (0, pad_keys))
         last_vc = F.pad(last_vc, (0, 0, 0, pad_keys))
     nkp = nk + pad_keys
-    key_groups = nkp // 32
+    kg = nkp // 32
+    levels = expand_levels
+    head, tail, tile_nodes = plan
+    walk = mode == "walk"
 
     # Enter plane space once.
-    state = limbs_to_planes(seeds0.contiguous())  # [16, 8, key_groups]
-    ctrl = pack_key_bits(control0)  # [key_groups]
+    state = limbs_to_planes(seeds0.contiguous())  # [16, 8, KG]
+    ctrl = pack_key_bits(control0)  # [KG]
 
     # Pack every level's corrections in one pass: key k of level l is
-    # block l * nkp + k, i.e. words [l * KG, (l + 1) * KG) of the packing.
-    # Per-level packing would cost a few hundred small device ops per
-    # level on the host's dispatch path.
-    cwp_all = pack_key_planes(cw_seeds[:expand_levels].reshape(-1, 4).contiguous())
-    cwl_all = pack_key_bits(cw_left[:expand_levels].reshape(-1))
-    cwr_all = pack_key_bits(cw_right[:expand_levels].reshape(-1))
+    # block l * nkp + k, i.e. word l * KG + k / 32 of the packing; then one
+    # [16, 8, KG] row per level. Per-level packing would cost a few
+    # hundred small device ops per level on the host's dispatch path.
+    cwp = pack_key_planes(cw_seeds[:levels].reshape(-1, 4).contiguous())
+    cwp = cwp.reshape(16, 8, levels, kg).permute(2, 0, 1, 3).contiguous()
+    cwl = pack_key_bits(cw_left[:levels].reshape(-1)).reshape(levels, kg)
+    cwr = pack_key_bits(cw_right[:levels].reshape(-1)).reshape(levels, kg)
+    vc = pack_key_planes(last_vc.contiguous())
 
-    for lvl in range(expand_levels):
-        cols = slice(lvl * key_groups, (lvl + 1) * key_groups)
-        state, ctrl = expand_level(
-            state,
-            ctrl,
-            cwp_all[..., cols].contiguous(),
-            cwl_all[cols].contiguous(),
-            cwr_all[cols].contiguous(),
-        )
-
+    if head:
+        head_fn = walk_descend if walk else expand_head
+        state, ctrl = head_fn(state, ctrl, cwp[:head], cwl[:head], cwr[:head])
+    for lvl in range(head, levels - tail):
+        state, ctrl = expand_level(state, ctrl, cwp[lvl], cwl[lvl], cwr[lvl])
     # Leaf value blocks: output PRG + XOR value correction (party
     # negation is the identity for XOR shares).
-    values = value_hash(state, ctrl, pack_key_planes(last_vc.contiguous()))
+    a = levels - tail
+    if tail and walk:
+        values, _ = walk_descend(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
+                                 value_hash=True)
+    elif tail:
+        values, _ = expand_tail(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
+                                tile_nodes * kg)
+    else:
+        values = value_hash(state, ctrl, vc)
 
     # Leave plane space once: [w * nkp, 4] node-major -> [nkp, w, 4].
-    w = 1 << expand_levels
+    w = 1 << levels
     out = planes_to_limbs(values).reshape(w, nkp, 4).transpose(0, 1)
-    # Exit gather: argsort of the per-level doubling order (the classic
-    # bit-reversal permutation).
-    leaf_order = tail_node_permutation(np.zeros(1, dtype=np.int64), expand_levels, 1)[0]
-    perm = torch.from_numpy(np.argsort(leaf_order)[:num_blocks]).to(out.device)
-    out = out[:, perm, :]
+    perm = exit_permutation(levels, head, tail, tile_nodes, walk, num_blocks)
+    out = out[:, torch.from_numpy(perm).to(out.device), :]
     if out.shape[1] < num_blocks:
         # Blocks beyond the tree's capacity can only select zero rows.
         out = F.pad(out, (0, 0, 0, num_blocks - out.shape[1]))

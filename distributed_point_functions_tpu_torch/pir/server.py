@@ -4,10 +4,11 @@ The port of the JAX package's `pir/server.py` for the plain role on one
 device, materialized tier. `DenseDpfPirServer` binds the role to the
 dense database: a request's DPF keys are staged with the shared all-zeros
 prefix walked on the host (`dense_eval.stage_keys`), the covering
-subtree is expanded on the device by the per-level kernels
-(`dense_eval_planes.evaluate_selection_blocks_planes`: K2 per level, K3
-at the leaves), and the selections go through the XOR inner product (K1)
-against the database's bit-major staging.
+subtree is expanded on the device (`dense_eval_planes.
+evaluate_selection_blocks_planes`) in the server's `expansion` mode --
+"walk" (K4 head and tail), "tail" (K6 head, K5 tail) or "level" (K2 per
+level, K3 at the leaves) -- and the selections go through the XOR inner
+product (K1) against the database's bit-major staging.
 
 A batch whose selections the card cannot hold raises
 `torch.cuda.OutOfMemoryError`; the streaming and chunked tiers that
@@ -25,7 +26,11 @@ from ..value_types import XorType
 from . import messages
 from .database import DenseDpfPirDatabase
 from .dense_eval import stage_keys
-from .dense_eval_planes import evaluate_selection_blocks_planes
+from .dense_eval_planes import (
+    DEFAULT_EXPANSION,
+    EXPANSION_MODES,
+    evaluate_selection_blocks_planes,
+)
 
 
 class DpfPirServer:
@@ -50,10 +55,16 @@ class DpfPirServer:
 class DenseDpfPirServer(DpfPirServer):
     """PIR over a dense index space, on one device."""
 
-    def __init__(self, database: DenseDpfPirDatabase, device=None):
+    def __init__(self, database: DenseDpfPirDatabase, device=None,
+                 expansion: str = DEFAULT_EXPANSION):
         super().__init__()
         if database is None:
             raise ValueError("database cannot be None")
+        if expansion not in EXPANSION_MODES:
+            raise ValueError(
+                f"expansion must be one of {EXPANSION_MODES}, got {expansion!r}"
+            )
+        self._expansion = expansion
         self._device = resolve_device(device)
         if database.device != self._device:
             raise ValueError(
@@ -80,9 +91,10 @@ class DenseDpfPirServer(DpfPirServer):
 
     @classmethod
     def create_plain(
-        cls, database: DenseDpfPirDatabase, device=None
+        cls, database: DenseDpfPirDatabase, device=None,
+        expansion: str = DEFAULT_EXPANSION,
     ) -> "DenseDpfPirServer":
-        return cls(database, device=device)
+        return cls(database, device=device, expansion=expansion)
 
     @property
     def dpf(self) -> DistributedPointFunction:
@@ -91,6 +103,10 @@ class DenseDpfPirServer(DpfPirServer):
     @property
     def database(self) -> DenseDpfPirDatabase:
         return self._database
+
+    @property
+    def expansion(self) -> str:
+        return self._expansion
 
     @property
     def expand_levels(self) -> int:
@@ -122,6 +138,7 @@ class DenseDpfPirServer(DpfPirServer):
             *staged,
             expand_levels=self._expand_levels,
             num_blocks=self._num_blocks,
+            mode=self._expansion,
         )
         return messages.PirResponse(
             dpf_pir_response=messages.DpfPirResponse(

@@ -68,14 +68,65 @@ def test_xor_inner_product_matches_plain(dev, nq, groups, words):
     assert torch.equal(got, ipk.xor_inner_product_packed_plain(db_perm, packed))
 
 
-def test_dense_pir_on_the_card_matches_the_plain_server(dev):
+def _fused_args(rng, g0, kg, r, device):
+    return [_words(rng, s, device) for s in
+            ((16, 8, g0), (g0,), (r, 16, 8, kg), (r, kg), (r, kg), (16, 8, kg))]
+
+
+# (G0, KG, r, node lanes / KG, value hash): ragged small shapes, then the
+# main path's two phases (head: 4 -> 2,048 columns; tail: 2,048 -> 32,768
+# with the value hash).
+@pytest.mark.parametrize(
+    "g0,kg,r,nodes,vh",
+    [(3, 1, 2, 1, True), (8, 2, 3, 2, False), (4, 4, 9, 1, False),
+     (2048, 4, 4, 1, True)],
+)
+def test_walk_descend_matches_plain(dev, g0, kg, r, nodes, vh):
+    rng = np.random.default_rng(g0 + r)
+    *args, vc = _fused_args(rng, g0, kg, r, dev)
+    before = cuda_lib.LAUNCHES["walk_descend"]
+    got = ep.walk_descend(*args, vc, value_hash=vh, node_lanes=nodes * kg)
+    assert cuda_lib.LAUNCHES["walk_descend"] == before + 1
+    want = ep.walk_descend_plain(*args, vc, value_hash=vh, node_lanes=nodes * kg)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("g0,kg,r", [(3, 1, 1), (6, 2, 3), (4, 4, 9)])
+def test_expand_head_matches_plain(dev, g0, kg, r):
+    rng = np.random.default_rng(g0 * r)
+    *args, _ = _fused_args(rng, g0, kg, r, dev)
+    before = cuda_lib.LAUNCHES["expand_head"]
+    got = ep.expand_head(*args)
+    assert cuda_lib.LAUNCHES["expand_head"] == before + 1
+    want = ep.expand_head_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# The last case is the main path's tail: 2,048 -> 32,768 columns in
+# 128-column tiles; (6, 2, 2, 4) has a narrower last tile.
+@pytest.mark.parametrize("g0,kg,r,tile", [(6, 2, 2, 4), (8, 1, 3, 1), (2048, 4, 4, 128)])
+def test_expand_tail_matches_plain(dev, g0, kg, r, tile):
+    rng = np.random.default_rng(g0 + tile)
+    args = _fused_args(rng, g0, kg, r, dev)
+    before = cuda_lib.LAUNCHES["expand_tail"]
+    got = ep.expand_tail(*args, tile)
+    assert cuda_lib.LAUNCHES["expand_tail"] == before + 1
+    want = ep.expand_tail_plain(*args, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("expansion", ["walk", "tail", "level"])
+def test_dense_pir_on_the_card_matches_the_plain_server(dev, expansion):
     rng = np.random.default_rng(9)
     recs = [rng.bytes(int(n)) for n in rng.integers(1, 40, 1000)]
     idx = [int(i) for i in rng.integers(0, len(recs), 37)]
     reqs = DenseDpfPirClient.create(len(recs)).create_plain_requests(idx)
-    card = DenseDpfPirServer.create_plain(DenseDpfPirDatabase(recs))
+    card = DenseDpfPirServer.create_plain(DenseDpfPirDatabase(recs), expansion=expansion)
     host = DenseDpfPirServer.create_plain(
-        DenseDpfPirDatabase(recs, device="cpu"), device="cpu"
+        DenseDpfPirDatabase(recs, device="cpu"), device="cpu", expansion=expansion
     )
     shares = []
     for req in reqs:

@@ -3,7 +3,9 @@
 Keys, staged arrays and the expansion are compared on the same inputs;
 end to end, on a 2^12 x 32 B database with 40 queries, the port's plain
 server (CPU, plain kernel versions) must return each party's
-`masked_response` bytes exactly as the JAX server does. The JAX side
+`masked_response` bytes exactly as the JAX server does, in each of the
+port's expansion modes (walk, tail, level) and across head/tail splits.
+The JAX side
 serves through its plane expansion (`DPF_TPU_EXPANSION=planes`), which on
 the CPU is the XLA per-level path, so it compiles one program for both
 the expansion check and the server.
@@ -36,7 +38,9 @@ from distributed_point_functions_tpu_torch.pir import (
 from distributed_point_functions_tpu_torch.pir import messages
 from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys_host
 from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
+    evaluate_planned,
     evaluate_selection_blocks_planes,
+    expansion_plan,
 )
 from distributed_point_functions_tpu_torch.value_types import XorType
 
@@ -155,9 +159,52 @@ def test_expansion_matches_jax_on_staged_arrays(case):
     assert np.array_equal(to_numpy(sel), case["jsel"])
 
 
-def test_end_to_end_masked_responses_match_jax(case):
+# (mode, head_levels, tail_levels, tail_tile_lanes) at this case's 40 keys
+# (KG = 2 after padding) and 5 levels; the plan each gives is in the id.
+SPLITS = [
+    ("walk", None, None, None),  # K2 x1, K4 tail x4
+    ("walk", 2, 1, None),  # K4 head x2, K2 x2, K4 tail x1
+    ("walk", None, 0, None),  # K4 head x5, K3
+    ("walk", 0, 0, None),  # K2 x5, K3
+    ("tail", None, None, None),  # K6 head x4, K5 tail x1 (16-node tiles)
+    ("tail", 0, 4, 2),  # K5 tail x4, one-node tiles
+    ("tail", 2, 1, None),  # K6 head x2, K2 x2, K5 tail x1
+    ("tail", 0, 0, None),  # K2 x5, K3
+    ("level", None, None, None),  # K2 x5, K3
+    ("level", 2, None, None),  # K6 head x2, K2 x3, K3
+]
+
+
+@pytest.mark.parametrize(
+    "mode,head,tail,tile", SPLITS,
+    ids=[f"{m}-h{h}-t{t}-l{l}" for m, h, t, l in SPLITS],
+)
+def test_expansion_modes_and_splits_match_jax(case, mode, head, tail, tile):
+    plan = expansion_plan(mode, 2, case["expand"], head_levels=head,
+                          tail_levels=tail, tail_tile_lanes=tile)
+    sel = evaluate_planned(
+        *(to_tensor(a, "cpu") for a in case["staged"][0]),
+        expand_levels=case["expand"], num_blocks=case["num_blocks"], mode=mode,
+        plan=plan,
+    )
+    assert np.array_equal(to_numpy(sel), case["jsel"])
+
+
+@pytest.mark.parametrize("mode", ["walk", "tail", "level"])
+def test_expansion_cuts_and_pads_the_blocks(case, mode):
+    # Fewer blocks than leaves cuts the exit gather; more pads with zeros.
+    staged = [to_tensor(a, "cpu") for a in case["staged"][0]]
+    for n in (20, 36):
+        sel = to_numpy(evaluate_selection_blocks_planes(
+            *staged, expand_levels=case["expand"], num_blocks=n, mode=mode))
+        assert np.array_equal(sel[:, :32], case["jsel"][:, :n])
+        assert not sel[:, 32:].any()
+
+
+@pytest.mark.parametrize("expansion", ["walk", "tail", "level"])
+def test_end_to_end_masked_responses_match_jax(case, expansion):
     db = interop.database_from_records(case["records"], device="cpu")
-    server = DenseDpfPirServer.create_plain(db, device="cpu")
+    server = DenseDpfPirServer.create_plain(db, device="cpu", expansion=expansion)
     ours = [
         server.handle_plain_request(r).dpf_pir_response.masked_response
         for r in case["reqs"]

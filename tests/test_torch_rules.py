@@ -101,8 +101,32 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
         recs[0], recs[299]
     ]
     assert cuda_lib.LAUNCHES == {
-        "expand_level": 0, "value_hash": 0, "xor_inner_product": 0
+        "expand_level": 0, "value_hash": 0, "xor_inner_product": 0,
+        "walk_descend": 0, "expand_head": 0, "expand_tail": 0,
     }
+
+
+@pytest.mark.parametrize("expansion", ["walk", "tail", "level"])
+def test_every_expansion_mode_counts_no_launch_on_cpu(expansion):
+    # 2^13 records: 6 levels, so walk and tail mode both run a head and a
+    # tail (K4 x2; K6 + K5) in their plain versions.
+    cuda_lib.reset_launch_counts()
+    recs = [bytes([i % 251]) * 4 for i in range(1 << 13)]
+    server = DenseDpfPirServer.create_plain(
+        DenseDpfPirDatabase(recs, device="cpu"), device="cpu", expansion=expansion
+    )
+    r0, r1 = DenseDpfPirClient.create(len(recs)).create_plain_requests([7, 5000])
+    s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
+    s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
+    assert [bytes(a ^ b for a, b in zip(x, y)) for x, y in zip(s0, s1)] == [
+        recs[7], recs[5000]
+    ]
+    assert not any(cuda_lib.LAUNCHES.values()), cuda_lib.LAUNCHES
+    with pytest.raises(ValueError):
+        DenseDpfPirServer.create_plain(
+            DenseDpfPirDatabase(recs[:3], device="cpu"), device="cpu",
+            expansion="pallas",
+        )
 
 
 def test_wrappers_raise_for_other_devices():
@@ -113,6 +137,17 @@ def test_wrappers_raise_for_other_devices():
             torch.empty((16, 8, 1), **meta), torch.empty((1,), **meta),
             torch.empty((1,), **meta),
         )
+    fused = (
+        torch.empty((16, 8, 4), **meta), torch.empty((4,), **meta),
+        torch.empty((2, 16, 8, 1), **meta), torch.empty((2, 1), **meta),
+        torch.empty((2, 1), **meta),
+    )
+    with pytest.raises(ValueError, match="unsupported device"):
+        ep.walk_descend(*fused)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ep.expand_head(*fused)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ep.expand_tail(*fused, torch.empty((16, 8, 1), **meta), 1)
     with pytest.raises(ValueError, match="unsupported device"):
         ipk.xor_inner_product_packed(
             torch.empty((32, 8, 2), **meta), torch.empty((8, 8), **meta)
@@ -121,7 +156,7 @@ def test_wrappers_raise_for_other_devices():
 
 @pytest.mark.parametrize(
     "module",
-    ["ops/expand_planes.py", "ops/inner_product_kernels.py",
+    ["ops/expand_planes.py", "ops/aes_bitslice.py", "ops/inner_product_kernels.py",
      "pir/dense_eval_planes.py", "pir/database.py", "pir/server.py"],
 )
 def test_serving_path_has_no_try(module):
