@@ -22,7 +22,11 @@ non-zero before printing a result. Phases, one JSON line each:
    phase of walk mode: head 4 -> 2,048 word columns over 9 levels, tail
    2,048 -> 32,768 over 4 levels with the value hash), K6 `expand_head`
    (4 -> 2,048) and K5 `expand_tail` (2,048 -> 32,768, 128-column
-   tiles). Kernel and plain PyTorch version on the same seeded inputs
+   tiles); K8 `path_level` (one path-walk level: per seed at 32 word
+   columns, the DCF's 1,024 keys, and at 2,048; shared corrections at
+   2,048, at 32, `evaluate_at`'s 1,024 points, and at 2, `evaluate_next`'s
+   64 prefixes); and K3 at the DCF's 1,024 columns (32 levels' states of
+   1,024 keys hashed in one launch). Kernel and plain PyTorch version on the same seeded inputs
    must be `torch.equal`; `ms`, one call timed alone between CUDA
    events (the card also waits on the wrapper's host dispatch),
    `device_ms`, the device time of one launch (20 launches queued
@@ -31,7 +35,8 @@ non-zero before printing a result. Phases, one JSON line each:
    doubling work: each tree node's children hashed once). One AES
    counts the fewer of the published two-input gate count and the LOP3
    instructions `cuobjdump -sass` finds in the port's AES with its ten
-   rounds written out (`aes_sass_ops`; the `build` line gives both).
+   rounds written out (`aes_sass_ops`, for each fixed key and for the
+   select-key AddRoundKey of K4 and K8; the `build` line gives both).
 4. `small_path`: a 2^12 x 32 B database served on the card and by the
    plain versions on the host must give the same bytes per party, in
    each expansion mode.
@@ -50,10 +55,34 @@ non-zero before printing a result. Phases, one JSON line each:
    `main_path_breakdown` for each mode: one party's batch split into key
    staging, expansion and inner product (host clock, synchronized), and
    the device's busy share from a `torch.profiler` trace of one request.
-6. `{"kernels": [...]}`: every ported kernel with its launches on the
+6. The DPF and DCF paths, each run with every launch count set to 0
+   just before it and checked just after:
+   - `dcf`: `DistributedComparisonFunction.create(32, IntType(64))`,
+     batches of 1,024 and 256 keys (one key pair, the parties
+     alternating) at random points; each point also evaluated with the
+     parties swapped, and every pair of shares must reconstruct
+     beta * [x < alpha] mod 2^64; 31 K8 and 1 K3 launches a batch;
+     evaluations per second, device idle share;
+   - `dpf_full_domain`, once per expansion mode: one key pair over 2^20,
+     IntType(64), `evaluate_until(0, [], ctx)`; the modes' shares equal,
+     the two parties' sum beta at alpha and 0 elsewhere; ms per
+     evaluation;
+   - `dpf_point`: `evaluate_at` at 1,024 points equals the full-domain
+     values there (19 K8 launches a party); an incremental DPF over
+     (8, 14, 20) through `evaluate_next` with 64 prefixes per level after
+     the first (resumed through K8) reconstructs at every level and
+     equals its own full-domain evaluation at the last; one more
+     `evaluate_next` at 40 prefixes walks its narrow levels on K8.
+   Every call's values in these phases must also equal the plain
+   versions' (a `device="cpu"` DPF or DCF, in the same expansion mode)
+   on the same keys and points: off alpha's path both parties hold the
+   same seeds, so a kernel error they share would still reconstruct.
+7. `{"kernels": [...]}`: every ported kernel with its launches on the
    main path (the run of the mode that launches it; K1 from the default
-   mode's), its agreement, times (`ms` and `device_ms`) and bound.
-7. `{"ok": true, "device": {...}}` as the last line.
+   mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of one launch
+   at its 32 word columns), its agreement, times (`ms` and `device_ms`)
+   and bound.
+8. `{"ok": true, "device": {...}}` as the last line.
 """
 
 from __future__ import annotations
@@ -163,35 +192,48 @@ def require_equal(name, got, want) -> int:
     return max_abs_err(got, want)
 
 
-def aes_word_ops(key_index: int) -> int:
-    """The fewest 32-bit word operations of one bitsliced AES-128 with a
-    fixed key on one 32-lane column, in published two-input gates: 160
-    S-boxes of `SBOX_GATES`, 9 x 4 MixColumns columns of
-    `MIXCOLUMN_XORS`, and one NOT per set round-key bit (a clear bit
-    costs nothing)."""
+def aes_word_ops(key) -> int:
+    """The fewest 32-bit word operations of one bitsliced AES-128 on one
+    32-lane column, in published two-input gates: 160 S-boxes of
+    `SBOX_GATES`, 9 x 4 MixColumns columns of `MIXCOLUMN_XORS`, and the
+    AddRoundKeys. With a fixed key (index 0, 1, 2) that is one NOT per set
+    round-key bit (a clear bit costs nothing); with the select-key
+    AddRoundKey of K4 and K8 (`"select"`: left key where a lane's select
+    bit is 0, right key where it is 1) one operation per bit set in
+    either key (an XOR with the select word or its complement, or a
+    NOT)."""
     from distributed_point_functions_tpu_torch.ops import sbox_codegen
     from distributed_point_functions_tpu_torch.ops.aes_bitslice import _rk_bits
 
-    _, rk = sbox_codegen.ROUND_KEYS[key_index]
-    return 160 * SBOX_GATES + 36 * MIXCOLUMN_XORS + int(_rk_bits(rk).sum())
+    if key == "select":
+        bits = _rk_bits(sbox_codegen.ROUND_KEYS[0][1]) | _rk_bits(sbox_codegen.ROUND_KEYS[1][1])
+    else:
+        bits = _rk_bits(sbox_codegen.ROUND_KEYS[key][1])
+    return 160 * SBOX_GATES + 36 * MIXCOLUMN_XORS + int(bits.sum())
 
 
-# One AES-128 per thread with the key fixed at compile time, its ten
-# rounds written out in a row (no loop, so each instruction in the SASS
-# runs once), and the round keys' NOTs free to fold into the three-input
-# LOP3 instructions around them: the fewest instructions the compiler
-# finds for the port's circuit (the kernels keep the rounds in a loop).
-def aes_probe_source(key: int) -> str:
+# One AES-128 per thread with the key fixed at compile time (or the
+# select-key AddRoundKey of K4 and K8, its select word read from memory),
+# its ten rounds written out in a row (no loop, so each instruction in the
+# SASS runs once), and the round keys' NOTs free to fold into the
+# three-input LOP3 instructions around them: the fewest instructions the
+# compiler finds for the port's circuit (the kernels keep the rounds in a
+# loop).
+def aes_probe_source(key) -> str:
+    ark = ("add_round_key_select(s, sel, {})" if key == "select"
+           else f"add_round_key(s, {key}, {{}})")
     rounds = "\n".join(
         f"  sub_bytes(s); {'shift_rows_mix_columns' if rnd < 10 else 'shift_rows'}(s);"
-        f" add_round_key(s, {key}, {rnd});"
+        f" {ark.format(rnd)};"
         for rnd in range(1, 11))
+    load_sel = ("  const uint32_t sel = in[128 * blockDim.x + threadIdx.x];\n"
+                if key == "select" else "")
     return f"""#include "aes_generated.cuh"
 extern "C" __global__ void aes_probe(const uint32_t* in, uint32_t* out) {{
   uint32_t s[128];
-#pragma unroll
+{load_sel}#pragma unroll
   for (int p = 0; p < 128; ++p) s[p] = in[p * blockDim.x + threadIdx.x];
-  add_round_key(s, {key}, 0);
+  {ark.format(0)};
 {rounds}
 #pragma unroll
   for (int p = 0; p < 128; ++p) out[p * blockDim.x + threadIdx.x] = s[p];
@@ -199,7 +241,7 @@ extern "C" __global__ void aes_probe(const uint32_t* in, uint32_t* out) {{
 """
 
 
-PROBE_KEYS = (0, 1, 2)  # kKeyLeft, kKeyRight, kKeyValue
+PROBE_KEYS = (0, 1, 2, "select")  # kKeyLeft, kKeyRight, kKeyValue, select-key
 
 
 def start_aes_probe(cuda_lib, work: Path) -> list:
@@ -251,6 +293,356 @@ def aes_sass_ops(cuda_lib, work: Path, procs) -> dict:
             raise RuntimeError(f"AES probe {key}: {branches} branches, {lop3} LOP3")
         counts[key] = (lop3, total)
     return counts
+
+
+DCF_LDS = 32
+DCF_BATCHES = (1024, 256)
+FD_LDS = 20
+HIERARCHY = (8, 14, 20)
+PREFIXES = 64
+POINTS = 1024
+
+
+def as_u64(shares):
+    """int32[n, 2] limbs -> int64[n] holding the uint64's bits (sums of
+    these wrap mod 2^64, as the shares do)."""
+    import torch
+
+    return ((shares[:, 0].to(torch.int64) & 0xFFFFFFFF)
+            | (shares[:, 1].to(torch.int64) << 32))
+
+
+def host_ms(fn, reps: int) -> list:
+    """Host-clock times (ms) of `reps` calls, each ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def device_busy(fn) -> dict:
+    """One call under torch.profiler: its wall and device-busy ms, the
+    device's idle share, and the operations that took the most host time
+    (name, calls, self host ms, device ms)."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    top = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "top_host_ops": [[a.key, a.count, a.self_cpu_time_total / 1e3,
+                              a.device_time_total / 1e3] for a in top]}
+
+
+def counted(fn, want: dict, what: str) -> dict:
+    """Run `fn` with every launch count set to 0 just before it; the counts
+    just after must be `want` (0 for every kernel it does not name)."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.ops import cuda_lib
+
+    cuda_lib.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = dict(cuda_lib.LAUNCHES)
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got}, expected {want}")
+    return got
+
+
+def dcf_phase(rng, dev) -> dict:
+    """BASELINE.json configs[3], the DCF benchmark's shape: 2^32 domain,
+    IntType(64), batches of 1,024 and 256 keys (one key pair, the parties
+    alternating, as the JAX package's benchmark does) at as many random
+    points. Each point is evaluated with both parties' keys (the batch,
+    then a batch with the parties swapped), and every pair of shares must
+    reconstruct beta * [x < alpha] mod 2^64. A batch walks 31 tree levels:
+    31 K8 launches and one K3 launch. Returns the 1,024-key batch's launch
+    counts."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.dcf import DistributedComparisonFunction
+    from distributed_point_functions_tpu_torch.value_types import IntType
+
+    dcf = DistributedComparisonFunction.create(DCF_LDS, IntType(64))
+    cpu = DistributedComparisonFunction.create(DCF_LDS, IntType(64), device="cpu")
+    alpha = int(rng.integers(1, (1 << DCF_LDS) - 1))
+    beta = int(rng.integers(1, 1 << 63))
+    t0 = time.perf_counter()
+    k0, k1 = dcf.generate_keys(alpha, beta)
+    keygen_s = time.perf_counter() - t0
+    first = None
+    for batch in DCF_BATCHES:
+        xs = [int(x) for x in rng.integers(0, 1 << DCF_LDS, batch)]
+        xs[:3] = [alpha - 1, alpha, alpha + 1]
+        keys = [(k0, k1)[i % 2] for i in range(batch)]
+        swapped_keys = [(k1, k0)[i % 2] for i in range(batch)]
+        t0 = time.perf_counter()
+        staged = dcf.stage_keys(keys)
+        torch.cuda.synchronize()
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        swapped = dcf.stage_keys(swapped_keys)
+        run = lambda: dcf.batch_evaluate(None, xs, staged=staged)  # noqa: E731
+        run()  # warm-up
+        out = []
+        launches = counted(lambda: out.append(run()),
+                           {"path_level": DCF_LDS - 1, "value_hash": 1},
+                           f"dcf {batch} keys")
+        shares = (out[0], dcf.batch_evaluate(None, xs, staged=swapped))
+        # The card against the plain versions on the host, on the same
+        # keys and points: a wrong kernel whose error both parties share
+        # would still reconstruct.
+        for got, ks in zip(shares, (keys, swapped_keys)):
+            if not torch.equal(got.cpu(), cpu.batch_evaluate(ks, xs)):
+                raise AssertionError(f"dcf {batch} keys: card and plain shares differ")
+        total = as_u64(shares[0]) + as_u64(shares[1])
+        want = torch.tensor([beta if x < alpha else 0 for x in xs],
+                            dtype=torch.int64, device=dev)
+        if not torch.equal(total, want):
+            raise AssertionError(f"dcf {batch} keys: shares do not reconstruct")
+        times = host_ms(run, 15)
+        batch_ms = statistics.median(times)
+        emit({"phase": "dcf", "log_domain_size": DCF_LDS, "value_type": "IntType(64)",
+              "keys": batch, "points": batch, "reconstructed": batch,
+              "card_equals_plain": True, "launches": launches, "keygen_s": keygen_s,
+              "stage_ms": stage_ms, "batch_ms": batch_ms, "batch_ms_all": times,
+              "evaluations_per_sec": batch / batch_ms * 1e3, **device_busy(run)})
+        first = first or launches
+    return first
+
+
+def expansion_launches(mode: str, levels: int, columns: int = 1) -> dict:
+    """Launches of one key's plane expansion over `levels` levels from
+    `columns` word columns (`dense_eval_planes.expand_planned`)."""
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import expansion_plan
+
+    head, tail, _ = expansion_plan(mode, columns, levels)
+    head_k, tail_k = (("walk_descend", "walk_descend") if mode == "walk"
+                      else ("expand_head", "expand_tail"))
+    out = {}
+    if head:
+        out[head_k] = 1
+    if levels - head - tail:
+        out["expand_level"] = levels - head - tail
+    if tail:
+        out[tail_k] = out.get(tail_k, 0) + 1
+    else:
+        out["value_hash"] = 1
+    return out
+
+
+def with_expansion(dpf, mode):
+    """`dpf` with its subtree expansion in `mode` (a private hook of the
+    port's DPF: its users get the default)."""
+    dpf._expansion = mode
+    return dpf
+
+
+def dpf_full_domain_phase(rng, dev) -> dict:
+    """BASELINE.json configs[0]: one DPF key pair over 2^20, IntType(64),
+    full-domain `evaluate_until`: 19 tree levels (5 on the host, 14 in
+    plane layout), 2^19 leaves, 2^20 values per party. In each expansion
+    mode: the shares must equal the mode's plain versions on the host and
+    the other modes', and the two parties' shares must sum to beta at
+    alpha and to 0 elsewhere."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.dpf import DistributedPointFunction, DpfParameters
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import EXPANSION_MODES
+    from distributed_point_functions_tpu_torch.value_types import IntType
+
+    params = DpfParameters(FD_LDS, IntType(64))
+    alpha = int(rng.integers(0, 1 << FD_LDS))
+    beta = int(rng.integers(1, 1 << 63))
+    dpfs = {m: with_expansion(DistributedPointFunction.create(params), m)
+            for m in EXPANSION_MODES}
+    keys = dpfs["walk"].generate_keys(alpha, beta)
+    plane_levels = dpfs["walk"]._hierarchy_to_tree[0] - 5
+    shares = {}
+    for mode, dpf in dpfs.items():
+        def run(k, dpf=dpf):
+            return dpf.evaluate_until(0, [], dpf.create_evaluation_context(k))
+
+        run(keys[0])  # warm-up
+        out = []
+        want = {k: 2 * v for k, v in expansion_launches(mode, plane_levels).items()}
+        launches = counted(lambda: out.extend(run(k) for k in keys), want,
+                           f"dpf full domain ({mode})")
+        # The mode's plain versions on the host, on the same keys.
+        cpu = with_expansion(DistributedPointFunction.create(params, device="cpu"), mode)
+        for k, got in zip(keys, out):
+            if not torch.equal(got.cpu(), cpu.evaluate_until(0, [], cpu.create_evaluation_context(k))):
+                raise AssertionError(f"dpf full domain ({mode}): card and plain values differ")
+        total = as_u64(out[0]) + as_u64(out[1])
+        nonzero = total.nonzero().flatten().tolist()
+        if out[0].shape != (1 << FD_LDS, 2) or nonzero != [alpha] or int(total[alpha]) != beta:
+            raise AssertionError(f"dpf full domain ({mode}): shares do not reconstruct")
+        shares[mode] = out
+        times = host_ms(lambda: run(keys[0]), 7)
+        ms = statistics.median(times)
+        emit({"phase": "dpf_full_domain", "expansion": mode, "log_domain_size": FD_LDS,
+              "value_type": "IntType(64)", "values": 1 << FD_LDS, "reconstructed": True,
+              "card_equals_plain": True, "launches": launches, "ms_per_evaluation": ms, "ms_all": times,
+              "ns_per_value": ms * 1e6 / (1 << FD_LDS), **device_busy(lambda: run(keys[0]))})
+    for mode in EXPANSION_MODES:
+        if not all(torch.equal(a, b) for a, b in zip(shares[mode], shares["walk"])):
+            raise AssertionError(f"dpf full domain: {mode} differs from walk")
+    return {"dpf": dpfs["walk"], "keys": keys, "alpha": alpha, "beta": beta,
+            "shares": shares["walk"]}
+
+
+def dpf_point_phase(rng, dev, full: dict) -> None:
+    """Point and resumed hierarchical evaluation. `evaluate_at` at 1,024
+    points of the full-domain key (no context: K8 in shared mode, 19
+    launches a party) must equal its full-domain values there. An
+    incremental DPF over (8, 14, 20) with the same alpha is evaluated with
+    `evaluate_next`, 64 prefixes per level after the first (resumed
+    through K8 from the context); its last level must equal its own
+    full-domain evaluation at those points, and every level's shares must
+    reconstruct. Then one `evaluate_next` at 40 prefixes, not a multiple
+    of 32: its first 2 expansion levels walk on the card (K8) until 160
+    lanes fill whole words. Every call's values must equal the plain
+    versions' on the host for the same keys and prefixes."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.dpf import DistributedPointFunction, DpfParameters
+    from distributed_point_functions_tpu_torch.value_types import IntType
+
+    dpf, keys, alpha = full["dpf"], full["keys"], full["alpha"]
+    tree = dpf._hierarchy_to_tree[0]
+    pts = [int(x) for x in rng.integers(0, 1 << FD_LDS, POINTS)]
+    pts[:2] = [alpha, alpha ^ 1]
+    dpf.evaluate_at(keys[0], 0, pts)  # warm-up
+    out = []
+    at_launches = counted(lambda: out.extend(dpf.evaluate_at(k, 0, pts) for k in keys),
+                          {"path_level": 2 * tree, "value_hash": 2}, "evaluate_at")
+    cpu = DistributedPointFunction.create(dpf.parameters[0], device="cpu")
+    idx = torch.tensor(pts, device=dev)
+    for got, want, k in zip(out, full["shares"], keys):
+        if not torch.equal(got, want[idx]):
+            raise AssertionError("evaluate_at differs from the full-domain values")
+        if not torch.equal(got.cpu(), cpu.evaluate_at(k, 0, pts)):
+            raise AssertionError("evaluate_at: card and plain values differ")
+    at_times = host_ms(lambda: dpf.evaluate_at(keys[0], 0, pts), 15)
+    at_profile = device_busy(lambda: dpf.evaluate_at(keys[0], 0, pts))
+
+    params = [DpfParameters(lds, IntType(64)) for lds in HIERARCHY]
+    inc = DistributedPointFunction.create_incremental(params)
+    inc_cpu = DistributedPointFunction.create_incremental(params, device="cpu")
+    betas = [int(b) for b in rng.integers(1, 1 << 63, len(HIERARCHY))]
+    ikeys = inc.generate_keys_incremental(alpha, betas)
+    whole = [inc.evaluate_until(len(HIERARCHY) - 1, [], inc.create_evaluation_context(k))
+             for k in ikeys]
+
+    def pick(nodes, count, mine):
+        picked = [nodes[i] for i in rng.choice(len(nodes), count, replace=False)]
+        if mine not in picked:
+            picked[0] = mine
+        return picked
+
+    # Each IntType(64) tree node holds two domain points, so the prefixes
+    # are drawn as 64 distinct tree nodes (alpha's among them) with a
+    # random point of each: 64 lanes of K8 walk.
+    steps = [[]]
+    for hl in range(len(HIERARCHY) - 1):
+        lds = HIERARCHY[hl]
+        if hl:  # the tree nodes below the last step's prefixes
+            per = 1 << (lds - HIERARCHY[hl - 1] - 1)
+            nodes = [q * per + j for q in steps[-1] for j in range(per)]
+        else:
+            nodes = list(range(1 << (lds - 1)))
+        mine = alpha >> (FD_LDS - lds + 1)
+        picked = pick(nodes, PREFIXES, mine)
+        steps.append([2 * t + int(rng.integers(0, 2)) for t in picked])
+        steps[-1][picked.index(mine)] = alpha >> (FD_LDS - lds)
+    walk_levels = [0, inc._hierarchy_to_tree[0],
+                   inc._hierarchy_to_tree[1] - inc._hierarchy_to_tree[0]]
+    ctxs = [inc.create_evaluation_context(k) for k in ikeys]
+    cpu_ctxs = [inc_cpu.create_evaluation_context(k) for k in ikeys]
+
+    def check_level(what, hl, prefixes, out, cpu_ctxs):
+        lds = HIERARCHY[hl]
+        span = 1 << (lds - (HIERARCHY[hl - 1] if hl else 0))
+        points = ([p * span + j for p in prefixes for j in range(span)] if hl
+                  else list(range(span)))
+        for got, c in zip(out, cpu_ctxs):
+            if not torch.equal(got.cpu(), inc_cpu.evaluate_next(prefixes, c)):
+                raise AssertionError(f"{what}: card and plain values differ")
+        total = as_u64(out[0]) + as_u64(out[1])
+        expect = torch.tensor([betas[hl] if p == alpha >> (FD_LDS - lds) else 0
+                               for p in points], dtype=torch.int64, device=dev)
+        if not torch.equal(total, expect):
+            raise AssertionError(f"{what}: shares do not reconstruct")
+        return points
+
+    levels = []
+    for hl, prefixes in enumerate(steps):
+        expand = inc._hierarchy_to_tree[hl] - (inc._hierarchy_to_tree[hl - 1] if hl else 5)
+        want = {k: 2 * v for k, v in expansion_launches(
+            "walk", expand, len(prefixes) // 32 if hl else 1).items()}
+        if walk_levels[hl]:
+            want["path_level"] = 2 * walk_levels[hl]
+        out = []
+        launches = counted(lambda: out.extend(inc.evaluate_next(prefixes, c) for c in ctxs),
+                           want, f"evaluate_next level {hl}")
+        points = check_level(f"evaluate_next level {hl}", hl, prefixes, out, cpu_ctxs)
+        levels.append({"hierarchy_level": hl, "log_domain_size": HIERARCHY[hl],
+                       "prefixes": len(prefixes), "values": len(points),
+                       "launches": launches})
+    idx = torch.tensor(points, device=dev)
+    if not all(torch.equal(got, w[idx]) for got, w in zip(out, whole)):
+        raise AssertionError("evaluate_next differs from the full-domain values")
+
+    # 40 prefixes of level 1 (40 tree nodes): 2 narrow levels on K8 (40 ->
+    # 160 lanes), then 4 plane levels from 5 word columns.
+    mine = alpha >> (FD_LDS - HIERARCHY[0] + 1)
+    nodes = pick(list(range(1 << (HIERARCHY[0] - 1))), 40, mine)
+    narrow = [2 * t + int(rng.integers(0, 2)) for t in nodes]
+    narrow[nodes.index(mine)] = alpha >> (FD_LDS - HIERARCHY[0])
+    ctxs = [inc.create_evaluation_context(k) for k in ikeys]
+    cpu_ctxs = [inc_cpu.create_evaluation_context(k) for k in ikeys]
+    for c, c_cpu in zip(ctxs, cpu_ctxs):
+        inc.evaluate_next([], c)
+        inc_cpu.evaluate_next([], c_cpu)
+    expand = inc._hierarchy_to_tree[1] - inc._hierarchy_to_tree[0] - 2
+    want = {k: 2 * v for k, v in expansion_launches("walk", expand, 5).items()}
+    want["path_level"] = 2 * (inc._hierarchy_to_tree[0] + 2)
+    out = []
+    narrow_launches = counted(lambda: out.extend(inc.evaluate_next(narrow, c) for c in ctxs),
+                              want, "evaluate_next at 40 prefixes")
+    check_level("evaluate_next at 40 prefixes", 1, narrow, out, cpu_ctxs)
+
+    def chain():
+        ctx = inc.create_evaluation_context(ikeys[0])
+        for prefixes in steps:
+            inc.evaluate_next(prefixes, ctx)
+
+    chain_times = host_ms(chain, 7)
+    emit({"phase": "dpf_point", "log_domain_size": FD_LDS, "value_type": "IntType(64)",
+          "points": POINTS, "equals_full_domain": True, "card_equals_plain": True,
+          "launches": at_launches,
+          "evaluate_at_ms": statistics.median(at_times), "evaluate_at_ms_all": at_times,
+          "points_per_sec": POINTS / statistics.median(at_times) * 1e3,
+          "evaluate_at_profile": at_profile,
+          "hierarchy": list(HIERARCHY), "evaluate_next": levels,
+          "evaluate_next_equals_full_domain": True,
+          "evaluate_next_40_prefixes": {"launches": narrow_launches, "narrow_levels": 2},
+          "evaluate_next_chain_ms": statistics.median(chain_times),
+          "evaluate_next_chain_ms_all": chain_times})
 
 
 def main() -> int:
@@ -458,6 +850,35 @@ def main() -> int:
           "launches_per_batch": 1, **results["xor_inner_product"]})
     del db_perm, packed
 
+    # K8: one path-walk level (select-key AES, corrections, control), per
+    # seed at the DCF's width (1,024 keys: 32 word columns) and at 65,536
+    # lanes, and with one key's shared corrections (KW = 1) at 65,536
+    # lanes. A column: the select-key AES + 64 sigma + 128 feed-forward +
+    # 256 correction + 5 control operations.
+    path_ops = aes_ops["select"] + 64 + 128 + 256 + 5
+    k8 = {}
+    for mode, g, kw in (("per_seed", 32, 32), ("per_seed", 2048, 2048),
+                        ("shared", 2048, 1), ("shared", 32, 1), ("shared", 2, 1)):
+        args = (rand_words(16, 8, g), rand_words(g), rand_words(g),
+                rand_words(16, 8, kw), rand_words(kw), rand_words(kw))
+        k8[mode, g] = measure(
+            f"path_level {mode} G={g}", lambda: ep.path_level(*args),
+            lambda: ep.path_level_plain(*args), g * path_ops,
+            4 * (128 * g + 2 * g + 128 * kw + 2 * kw + 128 * g + g))
+        emit({"phase": "kernel", "name": "path_level", "mode": mode, "G": g,
+              "KW": kw, "lanes": 32 * g, **k8[mode, g]})
+    results["path_level"] = k8["per_seed", 32]
+
+    # K3 at the DCF's shape: the walk states of its 32 hierarchy levels,
+    # 32 word columns each, hashed with zero corrections in one launch.
+    g = 32 * DCF_LDS
+    args = (rand_words(16, 8, g), torch.zeros((g,), dtype=torch.int32, device=dev),
+            torch.zeros((16, 8, 1), dtype=torch.int32, device=dev))
+    part = measure("value_hash dcf", lambda: ep.value_hash(*args),
+                   lambda: ep.value_hash_plain(*args), g * value_ops,
+                   4 * (128 * g + g + 128 + 128 * g))
+    emit({"phase": "kernel", "name": "value_hash", "path": "dcf", "G": g, **part})
+
     # 4. A small database served on the card and by the plain versions.
     small = [rng.bytes(32) for _ in range(1 << 12)]
     client = DenseDpfPirClient.create(len(small))
@@ -514,14 +935,12 @@ def main() -> int:
         server = DenseDpfPirServer.create_plain(db, expansion=mode)
         servers[mode] = server
         serve(server)  # warm-up
-        cuda_lib.reset_launch_counts()
+        out = []
         t0 = time.perf_counter()
-        s0, s1 = serve(server)
+        launches[mode] = counted(lambda: out.append(serve(server)), expected[mode],
+                                 f"main path ({mode})")
         first_s[mode] = time.perf_counter() - t0
-        launches[mode] = dict(cuda_lib.LAUNCHES)
-        want = {name: expected[mode].get(name, 0) for name in cuda_lib.LAUNCHES}
-        if launches[mode] != want:
-            raise AssertionError(f"{mode}: launch counts {launches[mode]}, expected {want}")
+        s0, s1 = out[0]
         for a, b, i in zip(s0, s1, idx):
             if bytes(x ^ y for x, y in zip(a, b)) != records[i]:
                 raise AssertionError(f"main path ({mode}): record {i} does not reconstruct")
@@ -594,8 +1013,13 @@ def main() -> int:
               "kernel_device_ms": {k: results[k]["device_ms"] for k in mode_kernels},
               "queries_per_sec": qps[mode], "fastest": fastest})
 
-    # 6. Every ported kernel, with its launches from the run of the mode
-    # that launches it.
+    # 6. The DPF and DCF evaluation paths.
+    dcf_launches = dcf_phase(rng, dev)
+    full = dpf_full_domain_phase(rng, dev)
+    dpf_point_phase(rng, dev, full)
+
+    # 7. Every ported kernel, with its launches from the run of the mode
+    # (or path) that launches it.
     rows = [
         ("expand_level", "level", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:134"),
         ("value_hash", "level", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:333"),
@@ -618,9 +1042,21 @@ def main() -> int:
          "bound_by": results[name]["bound_by"],
          "library_ms": None}
         for name, mode, src, tpu in rows
+    ] + [
+        {"name": "path_level", "route": "cuda",
+         "source": "distributed_point_functions_tpu_torch/csrc/path_level.cu",
+         "replaces": "distributed_point_functions_tpu/ops/expand_planes_pallas.py:946",
+         "launches": dcf_launches["path_level"],
+         "max_abs_err": results["path_level"]["err"],
+         "ms": results["path_level"]["ms"],
+         "device_ms": results["path_level"]["device_ms"],
+         "plain_ms": results["path_level"]["plain_ms"],
+         "bound_ms": results["path_level"]["bound_ms"],
+         "bound_by": results["path_level"]["bound_by"],
+         "library_ms": None},
     ]})
 
-    # 7. The contract line.
+    # 8. The contract line.
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,14 +1,37 @@
-"""Distributed Point Functions: key types and batched key generation.
+"""Incremental Distributed Point Functions on PyTorch and CUDA.
 
-The slice of the JAX package's `dpf.py` that dense PIR needs: the key
-data model, the tree-depth arithmetic of `DistributedPointFunction`, and
-`generate_keys_batch` with its numpy engine. Key generation runs on the
-host with Python-int arithmetic and the numpy AES oracle (`ops/aes.py`);
-it is O(tree depth) per key, never a hot path. Evaluation happens in
-`pir/dense_eval_planes.py`.
+The port of the JAX package's `dpf.py`:
 
-Control bits are carried as separate words; in keys they are embedded
-in seed LSBs exactly like the reference (extract-and-clear convention).
+* **Key generation** runs on the host with Python-int arithmetic and the
+  numpy AES oracle (`ops/aes.py`), O(tree depth) per key, never a hot
+  path: `generate_keys_incremental` for any hierarchy, and the batched
+  `generate_keys_batch` for the dense-PIR key shape.
+* **Evaluation** runs on the device in bit-plane layout (`[16, 8, G]`,
+  32 lanes per word, `ops/aes_bitslice.py`):
+  - full-domain and subtree expansion (`evaluate_until`, `evaluate_next`)
+    runs its narrow first levels (below whole 32-lane words) on the host
+    for one key's root and as a K8 walk for seeds on the device, then the
+    dense-PIR expansion (`pir/dense_eval_planes.expand_planned`: K2-K6)
+    with one key's shared corrections, and leaves plane layout once, in
+    natural domain order;
+  - path walks (`evaluate_at`, resumed hierarchical evaluation, and the
+    multi-key engine behind the DCF) run K8 `path_level` once per tree
+    level, with shared or per-seed corrections;
+  - leaf values come from K3 `value_hash`, then limb arithmetic on the
+    value types (`value_types.py`).
+* **EvaluationContext** is the checkpoint of a partially evaluated DPF
+  (prefix -> seed, control bit, kept on the device); hierarchical
+  evaluation resumes from it. A call copies what it needs to the device
+  in one copy before its first launch and copies nothing back.
+
+The device is the constructor's `device` (None: the CUDA card, raising
+without one; "cpu" runs the kernels' plain versions). Differences from the
+JAX package: no environment switches, no kernel fallback and no jit or
+scan (the levels are a Python loop of kernel launches); point and prefix
+counts are padded to a multiple of 32 lanes only (the JAX package's
+power-of-two buckets bound its compile cache). Control bits are carried
+as separate words; in keys they sit in the seed LSBs, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -18,10 +41,31 @@ import secrets
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from . import keys as fixed_keys
-from .ops import aes
-from .value_types import ValueType, XorType
+from .device import resolve_device
+from .ops import aes, limb
+from .ops.aes_bitslice import (
+    broadcast_cw_planes,
+    limbs_to_planes,
+    limbs_to_planes_np,
+    pack_select_bits,
+    pack_select_bits_np,
+    planes_to_limbs,
+    unpack_select_bits,
+)
+from .ops.expand_planes import path_level, value_hash
+from .ops.words import to_tensor, to_tensors
+from .value_types import IntType, ValueType, XorType
+
+_U128_MASK = (1 << 128) - 1
+
+
+# ---------------------------------------------------------------------------
+# Data model
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,21 +97,250 @@ class DpfKey:
     last_level_value_correction: list
 
 
-class DistributedPointFunction:
-    """A DPF over the parameters of its hierarchy levels.
+@dataclasses.dataclass
+class PartialEvaluations:
+    """(prefix -> seed, control bit) at one tree level. The prefixes are a
+    sorted numpy array on the host (a batch's lookup is one
+    `searchsorted`); the seeds and control bits stay on the device where
+    the walk left them, row `rows[i]` holding the i-th sorted prefix.
+    Prefixes wider than 63 bits use an object array."""
 
-    Create with `create` (single hierarchy level). This slice generates
-    keys for the dense-PIR shape only: one level, `XorType(128)` values,
-    domains up to 2^63.
+    prefixes: np.ndarray  # sorted; uint64 or object
+    rows: np.ndarray  # int64[n]
+    seeds: torch.Tensor  # int32[n, 4]
+    control: torch.Tensor  # int32[n]
+
+    @classmethod
+    def build(cls, prefixes_list, seeds: torch.Tensor, control: torch.Tensor):
+        wide = any(p > 0x7FFFFFFFFFFFFFFF for p in prefixes_list)
+        prefixes = np.array(prefixes_list, dtype=object if wide else np.uint64)
+        order = np.argsort(prefixes, kind="stable")
+        return cls(prefixes=prefixes[order], rows=order, seeds=seeds, control=control)
+
+    def lookup(self, wanted_list, where: str = "") -> np.ndarray:
+        """Rows of `seeds` / `control` holding the `wanted_list` prefixes;
+        raises ValueError naming the first missing prefix (and `where`)."""
+        wide = self.prefixes.dtype == object
+        too_wide = [p for p in wanted_list if not wide and p > 0xFFFFFFFFFFFFFFFF]
+        if too_wide:
+            raise ValueError(f"prefix {int(too_wide[0])} not present in "
+                             f"ctx.partial_evaluations{where}")
+        wanted = np.array(wanted_list, dtype=object if wide else np.uint64)
+        pos = np.searchsorted(self.prefixes, wanted)
+        pos_clipped = np.minimum(pos, len(self.prefixes) - 1)
+        ok = (pos < len(self.prefixes)) & (self.prefixes[pos_clipped] == wanted)
+        if not np.all(ok):
+            missing = wanted[np.argmin(ok)]
+            raise ValueError(f"prefix {int(missing)} not present in "
+                             f"ctx.partial_evaluations{where}")
+        return self.rows[pos_clipped]
+
+
+@dataclasses.dataclass
+class EvaluationContext:
+    """Checkpoint of a partially evaluated DPF."""
+
+    key: DpfKey
+    previous_hierarchy_level: int = -1
+    # (prefix -> seed, control bit) at tree level
+    # hierarchy_to_tree[partial_evaluations_level], or None.
+    partial_evaluations: Optional[PartialEvaluations] = None
+    partial_evaluations_level: int = 0
+
+
+@dataclasses.dataclass
+class StagedKeyBatch:
+    """A batch of keys staged on the device once, in the multi-key engine's
+    layout: the keys pad to 32G lanes (G word columns), key k in lane k,
+    and every tree level's corrections are packed planes, so each level is
+    one K8 launch in per-seed mode. Reusable across evaluations (the DCF
+    evaluates one batch at many points)."""
+
+    n: int
+    parties: torch.Tensor  # int32[32G] (padding lanes 0)
+    state: torch.Tensor  # int32[16, 8, G] root seeds
+    ctrl: torch.Tensor  # int32[G] packed parties
+    cw_planes: torch.Tensor  # int32[L, 16, 8, G], L = tree levels - 1
+    cw_left: torch.Tensor  # int32[L, G] packed
+    cw_right: torch.Tensor  # int32[L, G] packed
+    value_corrections: list  # per hierarchy level: int32[32G, epb, nlimbs]
+
+
+# ---------------------------------------------------------------------------
+# Host-side AES helpers (numpy oracle)
+# ---------------------------------------------------------------------------
+
+
+def _mmo_host(rk: np.ndarray, xs: Sequence[int]) -> List[int]:
+    blocks = np.stack([aes.u128_to_limbs(x) for x in xs])
+    out = aes.mmo_hash_np(rk, blocks)
+    return [aes.limbs_to_u128(out[i]) for i in range(out.shape[0])]
+
+
+def _value_hash_bytes_host(seed: int, num_blocks: int) -> bytes:
+    xs = [(seed + j) & _U128_MASK for j in range(num_blocks)]
+    outs = _mmo_host(fixed_keys.RK_VALUE, xs)
+    return b"".join(x.to_bytes(16, "little") for x in outs)
+
+
+_CLEAR_LSB = np.array([0xFFFFFFFE, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF],
+                      dtype=np.uint32)
+
+
+def _expand_level_host(seeds, control, cw_seed, cw_left, cw_right):
+    """One doubling level on the host (numpy MMO), children interleaved
+    (left of seed i at 2i, right at 2i + 1): the JAX package's
+    `_expand_level_body`."""
+    n = seeds.shape[0]
+    left = aes.mmo_hash_np(fixed_keys.RK_LEFT, seeds)
+    right = aes.mmo_hash_np(fixed_keys.RK_RIGHT, seeds)
+    h = np.stack([left, right], axis=1).reshape(2 * n, 4)
+    c2 = np.repeat(control, 2)
+    h ^= np.where(c2[:, None] != 0, cw_seed[None, :], 0).astype(np.uint32)
+    t = h[:, 0] & np.uint32(1)
+    h &= _CLEAR_LSB
+    cw_dir = np.tile(np.array([cw_left, cw_right], dtype=np.uint32), n)
+    return h, t ^ (c2 & cw_dir)
+
+
+def _path_bits(paths: np.ndarray, bit_indices: Sequence[int]) -> np.ndarray:
+    """uint32[L, n]: bit `bit_indices[j]` of each uint32[n, 4] path (0 past
+    bit 127, as the reference's DCF shifted paths need)."""
+    out = np.zeros((len(bit_indices), paths.shape[0]), dtype=np.uint32)
+    for j, b in enumerate(bit_indices):
+        if b < 128:
+            out[j] = (paths[:, b >> 5] >> np.uint32(b & 31)) & np.uint32(1)
+    return out
+
+
+def _points_to_limbs(points: Sequence[int], rows: int) -> np.ndarray:
+    """uint32[rows, 4] limbs of the 128-bit `points`, zero rows after them."""
+    data = b"".join(int(p).to_bytes(16, "little") for p in points)
+    out = np.zeros((rows, 4), dtype=np.uint32)
+    out[:len(points)] = np.frombuffer(data, dtype="<u4").reshape(-1, 4)
+    return out
+
+
+def _pad32(n: int) -> int:
+    return max(32, -(-n // 32) * 32)
+
+
+def _to_device(dev, *groups: dict) -> List[dict]:
+    """Groups of named numpy arrays -> the same names as int32 tensors on
+    `dev`, moved in ONE host-to-device copy. Every evaluation stages all
+    it needs before its first launch: a blocking copy queued behind
+    launches would wait for them."""
+    tensors = iter(to_tensors([a for g in groups for a in g.values()], dev))
+    return [{name: next(tensors) for name in g} for g in groups]
+
+
+# ---------------------------------------------------------------------------
+# Device stages
+# ---------------------------------------------------------------------------
+
+
+def _eval_paths(state, ctrl, sel, cwp, cwl, cwr):
+    """Walk L tree levels of every lane's path, one K8 launch per level.
+
+    state int32[16, 8, G] and ctrl int32[G] (packed); sel int32[L, G]
+    packed path bits; cwp int32[L, 16, 8, KW] and cwl / cwr int32[L, KW]
+    with KW = 1 (one key's shared corrections) or G (per seed). The walk
+    stays in plane layout; callers enter and leave it once."""
+    for j in range(sel.shape[0]):
+        state, ctrl = path_level(state, ctrl, sel[j], cwp[j], cwl[j], cwr[j])
+    return state, ctrl
+
+
+def _walk_shared(state, ctrl, t: dict):
+    """`_eval_paths` with one key's corrections, from the staged `t`:
+    "sel" int32[L, G] packed path bits, "cw" int32[L, 4] and "cwl" /
+    "cwr" int32[L] (0/1)."""
+    return _eval_paths(state, ctrl, t["sel"], broadcast_cw_planes(t["cw"]),
+                       -t["cwl"][:, None], -t["cwr"][:, None])
+
+
+def _hash_planes(state: torch.Tensor) -> torch.Tensor:
+    """The MMO value hash of every lane of int32[16, 8, G] planes: K3
+    `value_hash` with zero corrections."""
+    dev = state.device
+    return value_hash(state, torch.zeros((state.shape[-1],), dtype=torch.int32, device=dev),
+                      torch.zeros((16, 8, 1), dtype=torch.int32, device=dev))
+
+
+def _value_hash(seeds: torch.Tensor, num_blocks: int) -> torch.Tensor:
+    """H_value(seed + j) for j < num_blocks: int32[..., 4] ->
+    int32[..., num_blocks, 4] (the output PRG of the reference's
+    `HashExpandedSeeds`), in plane layout through K3."""
+    blocks = torch.stack(
+        [seeds if j == 0 else limb.add_scalar(seeds, j) for j in range(num_blocks)],
+        dim=-2)
+    flat = blocks.reshape(-1, 4)
+    n = flat.shape[0]
+    flat = F.pad(flat, (0, 0, 0, _pad32(n) - n))
+    hashed = _hash_planes(limbs_to_planes(flat.contiguous()))
+    return planes_to_limbs(hashed)[:n].reshape(blocks.shape)
+
+
+def _leaf_stage_at(blocks, control, vc, block_indices, vtype, party):
+    """Leaf values at given block indices (point evaluation).
+
+    blocks int32[..., B, 4] value-hashed leaf blocks (`_value_hash`);
+    control int32[...]; vc int32[..., epb, nlimbs] (or [epb, nlimbs],
+    shared); block_indices int64[...]. Returns int32[..., nlimbs]; `party`
+    1 negates, -1 leaves negation to the caller (per key)."""
+    values = vtype.dev_from_value_blocks(blocks)
+    picked = vtype.dev_take_element(values, block_indices)
+    vc_picked = vtype.dev_take_element(vc.expand(values.shape), block_indices)
+    corrected = vtype.dev_where(control != 0, vtype.dev_add(picked, vc_picked), picked)
+    if party == 1:
+        corrected = vtype.dev_neg(corrected)
+    return corrected
+
+
+def _leaf_stage(blocks, control, vc, vtype, cepb, party):
+    """Value-hashed leaf blocks int32[n, 4] -> corrected values
+    int32[n * cepb, nlimbs] in domain order: the first `cepb` elements of
+    each block, the value correction where the control bit is set, and
+    party 1's negation."""
+    values = vtype.dev_from_value_blocks(blocks[:, None, :])[:, :cepb]
+    vc = vc[:cepb].expand(values.shape)
+    mask = (control != 0)[:, None].expand(values.shape[:2])
+    corrected = vtype.dev_where(mask, vtype.dev_add(values, vc), values)
+    if party == 1:
+        corrected = vtype.dev_neg(corrected)
+    return corrected.reshape(-1, values.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# The DPF itself
+# ---------------------------------------------------------------------------
+
+
+class DistributedPointFunction:
+    """Incremental DPF with hierarchical evaluation.
+
+    Create with `create` (single hierarchy level) or `create_incremental`.
+    `device` is where evaluation runs (None: the CUDA card). Value types:
+    `IntType` and `XorType`.
     """
 
-    def __init__(self, parameters: Sequence[DpfParameters]):
+    # The kernels of subtree expansion: None is the dense-PIR default
+    # (`pir/dense_eval_planes.DEFAULT_EXPANSION`); the tests and
+    # chip_smoke.py set another mode on an instance to drive its kernels.
+    # Every mode gives the same values.
+    _expansion: Optional[str] = None
+
+    def __init__(self, parameters: Sequence[DpfParameters], *, device=None):
+        self.device = device
         parameters = list(parameters)
         if not parameters:
             raise ValueError("parameters must not be empty")
         resolved = []
         prev_lds = 0
         for i, p in enumerate(parameters):
+            if not isinstance(p.value_type, (IntType, XorType)):
+                raise NotImplementedError(
+                    f"value type {p.value_type!r} is not ported; use IntType or XorType")
             if p.log_domain_size < 0 or p.log_domain_size > 128:
                 raise ValueError("log_domain_size must be in [0, 128]")
             if i > 0 and p.log_domain_size <= prev_lds:
@@ -78,9 +351,7 @@ class DistributedPointFunction:
                 raise ValueError("security_parameter must be in [0, 128]")
             if sec == 0.0:
                 sec = 40 + p.log_domain_size
-            resolved.append(
-                DpfParameters(p.log_domain_size, p.value_type, sec)
-            )
+            resolved.append(DpfParameters(p.log_domain_size, p.value_type, sec))
         self.parameters = resolved
 
         # Hierarchy -> tree level mapping: packed value types shorten the
@@ -102,9 +373,29 @@ class DistributedPointFunction:
         self._tree_levels_needed = tree_levels_needed
         self._blocks_needed = [(b + 127) // 128 for b in self._bits_needed]
 
+    # -- constructors -------------------------------------------------------
+
     @classmethod
-    def create(cls, parameters: DpfParameters) -> "DistributedPointFunction":
-        return cls([parameters])
+    def create(cls, parameters: DpfParameters, *, device=None) -> "DistributedPointFunction":
+        return cls([parameters], device=device)
+
+    @classmethod
+    def create_incremental(cls, parameters: Sequence[DpfParameters], *,
+                           device=None) -> "DistributedPointFunction":
+        return cls(parameters, device=device)
+
+    def _dev(self) -> torch.device:
+        return resolve_device(self.device)
+
+    # -- key generation (host) ---------------------------------------------
+
+    def generate_keys(self, alpha: int, beta) -> Tuple[DpfKey, DpfKey]:
+        """Single-hierarchy-level key generation."""
+        if len(self.parameters) != 1:
+            raise ValueError(
+                "generate_keys requires exactly one hierarchy level; use "
+                "generate_keys_incremental")
+        return self.generate_keys_incremental(alpha, [beta])
 
     def generate_keys_batch(
         self, alphas: Sequence[int], betas: Sequence, _root_seeds=None
@@ -115,7 +406,9 @@ class DistributedPointFunction:
         oracle: one AES call per (level, PRG key) for the whole batch.
         `_root_seeds` (uint32[2, n, 4]) injects the two parties' root
         seeds, so tests can hold the keys against the JAX package's;
-        otherwise they are drawn from `secrets`.
+        otherwise they are drawn from `secrets`. The dense-PIR key shape
+        only (one hierarchy level, `XorType(128)`, domain <= 2^63); other
+        shapes take `generate_keys_incremental`.
         """
         n = len(alphas)
         if len(betas) != n:
@@ -131,8 +424,8 @@ class DistributedPointFunction:
         ):
             raise NotImplementedError(
                 "generate_keys_batch supports the dense-PIR key shape only "
-                "(one hierarchy level, XorType(128), domain <= 2^63)"
-            )
+                "(one hierarchy level, XorType(128), domain <= 2^63); use "
+                "generate_keys_incremental")
         for a in alphas:
             if not isinstance(a, (int, np.integer)):
                 raise TypeError(f"alpha must be an integer, got {type(a)}")
@@ -242,3 +535,574 @@ class DistributedPointFunction:
                 )
             )
         return keys0, keys1
+
+    def generate_keys_incremental(
+        self, alpha: int, betas: Sequence, _root_seeds=None
+    ) -> Tuple[DpfKey, DpfKey]:
+        """The two parties' keys for point `alpha` with one value per
+        hierarchy level, by the reference's `GenerateNext` recurrence (the
+        value correction of an output level comes from the seeds before
+        that level's expansion). `_root_seeds` (two uint128 ints) injects
+        the parties' root seeds for tests; otherwise they come from
+        `secrets.randbits`."""
+        if len(betas) != len(self.parameters):
+            raise ValueError("betas must have one entry per hierarchy level")
+        for p, b in zip(self.parameters, betas):
+            p.value_type.validate(b)
+        last_lds = self.parameters[-1].log_domain_size
+        if not (0 <= alpha < (1 << last_lds)):
+            raise ValueError("alpha out of domain range")
+
+        if _root_seeds is not None:
+            root_seeds = [int(s) & _U128_MASK for s in _root_seeds]
+        else:
+            root_seeds = [secrets.randbits(128), secrets.randbits(128)]
+        seeds = list(root_seeds)
+        control = [0, 1]
+        correction_words: List[CorrectionWord] = []
+
+        for tree_level in range(1, self._tree_levels_needed):
+            value_correction = None
+            if (tree_level - 1) in self._tree_to_hierarchy:
+                hl = self._tree_to_hierarchy[tree_level - 1]
+                value_correction = self._compute_value_correction(
+                    hl, seeds, alpha, betas[hl], invert=bool(control[1]))
+            # Expand both parties' seeds left and right.
+            l0, l1 = _mmo_host(fixed_keys.RK_LEFT, seeds)
+            r0, r1 = _mmo_host(fixed_keys.RK_RIGHT, seeds)
+            t = [[l0 & 1, l1 & 1], [r0 & 1, r1 & 1]]  # [branch][party]
+            expanded = [[l0 & ~1, l1 & ~1], [r0 & ~1, r1 & ~1]]
+
+            bit_pos = last_lds - tree_level
+            current_bit = (alpha >> bit_pos) & 1 if bit_pos < 128 else 0
+            keep, lose = current_bit, 1 - current_bit
+
+            cw_seed = expanded[lose][0] ^ expanded[lose][1]
+            cw_control = [
+                t[0][0] ^ t[0][1] ^ current_bit ^ 1,  # left
+                t[1][0] ^ t[1][1] ^ current_bit,  # right
+            ]
+            new_seeds = [expanded[keep][b] ^ (cw_seed if control[b] else 0)
+                         for b in (0, 1)]
+            new_control = [t[keep][b] ^ (control[b] & cw_control[keep])
+                           for b in (0, 1)]
+            correction_words.append(CorrectionWord(
+                seed=cw_seed,
+                control_left=bool(cw_control[0]),
+                control_right=bool(cw_control[1]),
+                value_correction=value_correction,
+            ))
+            seeds, control = new_seeds, new_control
+
+        last_vc = self._compute_value_correction(
+            len(self.parameters) - 1, seeds, alpha, betas[-1],
+            invert=bool(control[1]))
+        key0 = DpfKey(seed=root_seeds[0], party=0,
+                      correction_words=correction_words,
+                      last_level_value_correction=list(last_vc))
+        key1 = DpfKey(
+            seed=root_seeds[1], party=1,
+            correction_words=[
+                dataclasses.replace(
+                    cw, value_correction=(None if cw.value_correction is None
+                                          else list(cw.value_correction)))
+                for cw in correction_words
+            ],
+            last_level_value_correction=list(last_vc),
+        )
+        return key0, key1
+
+    def _compute_value_correction(self, hierarchy_level: int, seeds: Sequence[int],
+                                  alpha: int, beta, invert: bool) -> list:
+        """Value correction at an output level (the reference's
+        `ComputeValueCorrection`)."""
+        p = self.parameters[hierarchy_level]
+        num_blocks = self._blocks_needed[hierarchy_level]
+        bytes_a = _value_hash_bytes_host(seeds[0], num_blocks)
+        bytes_b = _value_hash_bytes_host(seeds[1], num_blocks)
+        shift = self.parameters[-1].log_domain_size - p.log_domain_size
+        alpha_prefix = alpha >> shift if shift < 128 else 0
+        index_in_block = self._domain_to_block_index(alpha_prefix, hierarchy_level)
+        vt = p.value_type
+        ebytes = (vt.total_bit_size() + 7) // 8
+        ints_a = [vt.parse_direct(bytes_a, i * ebytes)
+                  for i in range(vt.elements_per_block())]
+        ints_b = [vt.parse_direct(bytes_b, i * ebytes)
+                  for i in range(vt.elements_per_block())]
+        ints_b[index_in_block] = vt.add(ints_b[index_in_block], beta)
+        out = []
+        for a, b in zip(ints_a, ints_b):
+            c = vt.sub(b, a)
+            out.append(vt.neg(c) if invert else c)
+        return out
+
+    # -- staging --------------------------------------------------------------
+
+    def create_evaluation_context(self, key: DpfKey) -> EvaluationContext:
+        self._validate_key(key)
+        return EvaluationContext(key=key)
+
+    def _validate_key(self, key: DpfKey) -> None:
+        if key.party not in (0, 1):
+            raise ValueError("key.party must be 0 or 1")
+        if len(key.correction_words) != self._tree_levels_needed - 1:
+            raise ValueError(
+                f"key has {len(key.correction_words)} correction words, "
+                f"expected {self._tree_levels_needed - 1}")
+
+    def _stage_correction_words(self, key: DpfKey, start: int, stop: int):
+        """Correction words [start, stop) as numpy arrays: seeds
+        uint32[L, 4], control_left / control_right uint32[L] (0/1)."""
+        cws = key.correction_words[start:stop]
+        cw_seeds = np.zeros((len(cws), 4), dtype=np.uint32)
+        for i, cw in enumerate(cws):
+            cw_seeds[i] = aes.u128_to_limbs(cw.seed)
+        cw_left = np.array([cw.control_left for cw in cws], dtype=np.uint32)
+        cw_right = np.array([cw.control_right for cw in cws], dtype=np.uint32)
+        return cw_seeds, cw_left, cw_right
+
+    def _value_correction_host(self, key: DpfKey, hierarchy_level: int):
+        """The hierarchy level's value-correction host values (length epb):
+        stored in the correction word at the level's tree level, except for
+        the last hierarchy level, which has its own key field."""
+        if hierarchy_level < len(self.parameters) - 1:
+            return key.correction_words[
+                self._hierarchy_to_tree[hierarchy_level]].value_correction
+        return key.last_level_value_correction
+
+    def _value_correction_np(self, key: DpfKey, hierarchy_level: int) -> np.ndarray:
+        """uint32[epb, nlimbs]: the level's value correction as limbs."""
+        vt = self.parameters[hierarchy_level].value_type
+        vc = self._value_correction_host(key, hierarchy_level)
+        return np.stack([vt.host_const(v) for v in vc])
+
+    def stage_key_batch(self, keys: Sequence[DpfKey]) -> StagedKeyBatch:
+        """Stage a batch of keys on the device in ONE host-to-device copy:
+        one pass over the keys assembles numpy arrays, which are packed
+        into plane layout on the host (`limbs_to_planes_np`). Reusable by
+        any number of `evaluate_and_apply` / `evaluate_and_accumulate`
+        calls."""
+        dev = self._dev()
+        n = len(keys)
+        if n == 0:
+            raise ValueError("keys must not be empty")
+        lanes = _pad32(n)
+        num_cw = self._tree_levels_needed - 1
+        seeds = np.zeros((lanes, 4), dtype=np.uint32)
+        parties = np.zeros((lanes,), dtype=np.uint32)
+        cw_seeds = np.zeros((num_cw, lanes, 4), dtype=np.uint32)
+        cw_left = np.zeros((num_cw, lanes), dtype=np.uint32)
+        cw_right = np.zeros((num_cw, lanes), dtype=np.uint32)
+        vcs = [np.zeros((lanes, p.value_type.elements_per_block(), p.value_type.nlimbs),
+                        dtype=np.uint32) for p in self.parameters]
+        for j, key in enumerate(keys):
+            self._validate_key(key)
+            seeds[j] = aes.u128_to_limbs(key.seed)
+            parties[j] = key.party
+            for i, cw in enumerate(key.correction_words):
+                cw_seeds[i, j] = aes.u128_to_limbs(cw.seed)
+                cw_left[i, j] = cw.control_left
+                cw_right[i, j] = cw.control_right
+            for hl, p in enumerate(self.parameters):
+                for e, v in enumerate(self._value_correction_host(key, hl)):
+                    vcs[hl][j, e] = p.value_type.host_const(v)
+        staged = to_tensors([
+            parties, limbs_to_planes_np(seeds), pack_select_bits_np(parties),
+            limbs_to_planes_np(cw_seeds), pack_select_bits_np(cw_left),
+            pack_select_bits_np(cw_right), *vcs,
+        ], dev)
+        return StagedKeyBatch(n, *staged[:6], value_corrections=staged[6:])
+
+    # -- evaluation (device) --------------------------------------------------
+
+    def _walk_arrays(self, key: DpfKey, paths: np.ndarray, start: int,
+                     stop: int) -> dict:
+        """Host arrays of a walk of `paths` (uint32[lanes, 4], tree indices
+        at tree level `stop`) from tree level `start` with the key's
+        corrections: level j reads path bit (stop - start - 1 - j)."""
+        num = stop - start
+        cw, cwl, cwr = self._stage_correction_words(key, start, stop)
+        bits = _path_bits(paths, [num - 1 - j for j in range(num)])
+        return {"sel": pack_select_bits_np(bits), "cw": cw, "cwl": cwl, "cwr": cwr}
+
+    def _resume_arrays(self, ctx: EvaluationContext, tree_indices: Sequence[int],
+                       hierarchy_level: int) -> dict:
+        """Host half of `_resume`: where the walk of `tree_indices` to the
+        hierarchy level's tree level starts (their ancestors' "rows" in
+        `ctx.partial_evaluations`, or the key's root) and its path bits and
+        corrections. Raises before any launch if an ancestor is missing."""
+        stop = self._hierarchy_to_tree[hierarchy_level]
+        start = self._hierarchy_to_tree[ctx.partial_evaluations_level]
+        n = len(tree_indices)
+        lanes = _pad32(n)
+        pe = ctx.partial_evaluations
+        if pe is not None and start <= stop:
+            shift = stop - start
+            prev = [0] * n if shift >= 128 else [ti >> shift for ti in tree_indices]
+            arrays = {"rows": pe.lookup(prev, f" at hierarchy level {hierarchy_level}")}
+        else:
+            # The root's planes, lanes padded to whole words with zero seeds.
+            start = 0
+            seeds = np.zeros((lanes, 4), dtype=np.uint32)
+            seeds[:n] = aes.u128_to_limbs(ctx.key.seed)
+            control = np.zeros((lanes,), dtype=np.uint32)
+            control[:n] = ctx.key.party
+            arrays = {"state": limbs_to_planes_np(seeds),
+                      "ctrl": pack_select_bits_np(control)}
+        arrays.update(self._walk_arrays(
+            ctx.key, _points_to_limbs(tree_indices, lanes), start, stop))
+        return arrays
+
+    def _resume(self, ctx: EvaluationContext, t: dict, tree_indices: Sequence[int],
+                hierarchy_level: int, update_ctx: bool):
+        """Device half: seeds / control bits (int32[n, 4] / int32[n]) of
+        `tree_indices` at the hierarchy level's tree level, one K8 launch
+        per tree level walked. With `update_ctx` they become the context's
+        partial evaluations, on the device."""
+        n = len(tree_indices)
+        if "rows" in t:
+            pad = _pad32(n) - n
+            pe = ctx.partial_evaluations
+            rows = t["rows"].long()
+            state = limbs_to_planes(F.pad(pe.seeds[rows], (0, 0, 0, pad)))
+            ctrl = pack_select_bits(F.pad(pe.control[rows], (0, pad)))
+        else:
+            state, ctrl = t["state"], t["ctrl"]
+        state, ctrl = _walk_shared(state, ctrl, t)
+        seeds, control = planes_to_limbs(state)[:n], unpack_select_bits(ctrl)[:n]
+        ctx.partial_evaluations = (
+            PartialEvaluations.build(list(tree_indices), seeds, control)
+            if update_ctx else None)
+        ctx.partial_evaluations_level = hierarchy_level
+        return seeds, control
+
+    def _expansion_arrays(self, key: DpfKey, start: int, stop: int, n: int,
+                          root=None):
+        """Host half of `_expand` for n seeds from tree level `start` to
+        `stop`: returns (meta, arrays).
+
+        While the width does not fill whole 32-lane words (n << h not a
+        multiple of 32 and below 256 lanes) the first h levels run narrow,
+        as the JAX package runs them in limb space. One key's root (`root`:
+        numpy seeds and control bits) takes them here with the numpy MMO;
+        seeds on the device take them as a K8 walk in which each of the
+        n << h children walks from its parent along its offset's bits. The
+        rest is the dense-PIR expansion with the key's corrections shared
+        by every lane (KG = 1), its phases' leaf order undone by one exit
+        gather."""
+        from .pir import dense_eval_planes as dep  # pir imports this module
+
+        levels = stop - start
+        if levels > 62:
+            raise ValueError(
+                "trying to expand more than 62 tree levels at once; insert "
+                "intermediate hierarchy levels")
+        h = 0
+        while h < levels and (n << h) % 32 and (n << h) < 256:
+            h += 1
+        cw, cwl, cwr = self._stage_correction_words(key, start, stop)
+        n0 = n << h
+        pad = _pad32(n0) - n0
+        if root is not None:
+            seeds, control = root
+            for i in range(h):
+                seeds, control = _expand_level_host(seeds, control, cw[i], cwl[i], cwr[i])
+            arrays = {"state": limbs_to_planes_np(np.pad(seeds, ((0, pad), (0, 0)))),
+                      "ctrl": pack_select_bits_np(np.pad(control, (0, pad)))}
+        else:
+            offsets = np.tile(np.arange(1 << h, dtype=np.uint32), n)
+            shifts = np.arange(h - 1, -1, -1, dtype=np.uint32)[:, None]
+            bits = np.pad((offsets[None, :] >> shifts) & 1, ((0, 0), (0, pad)))
+            arrays = {"sel": pack_select_bits_np(bits),
+                      "cw": cw[:h], "cwl": cwl[:h], "cwr": cwr[:h]}
+        mode = self._expansion or dep.DEFAULT_EXPANSION
+        plane_levels = levels - h
+        plan = dep.expansion_plan(mode, (n0 + pad) // 32, plane_levels)
+        arrays.update(
+            plane_cw=cw[h:], plane_cwl=cwl[h:], plane_cwr=cwr[h:],
+            perm=dep.exit_permutation(plane_levels, *plan, mode == "walk",
+                                      1 << plane_levels))
+        return (n0, mode, plan), arrays
+
+    def _expand(self, meta, t: dict, seeds=None, control=None):
+        """Device half of the expansion staged by `_expansion_arrays` (for
+        device seeds int32[n, 4] / int32[n], or from the staged root):
+        returns (value blocks int32[n * 2^L, 4], control int32[n * 2^L]) in
+        natural order (leaf i * 2^L + path), L = stop - start."""
+        from .pir import dense_eval_planes as dep  # pir imports this module
+
+        n0, mode, plan = meta
+        if seeds is None:
+            state, ctrl = t["state"], t["ctrl"]
+        else:
+            reps = n0 // seeds.shape[0]
+            pad = 32 * t["sel"].shape[1] - n0
+            state = limbs_to_planes(F.pad(seeds.repeat_interleave(reps, 0), (0, 0, 0, pad)))
+            ctrl = pack_select_bits(F.pad(control.repeat_interleave(reps), (0, pad)))
+            state, ctrl = _walk_shared(state, ctrl, t)
+        g0 = state.shape[-1]
+        values, ctrl = dep.expand_planned(
+            state, ctrl, broadcast_cw_planes(t["plane_cw"]),
+            -t["plane_cwl"][:, None], -t["plane_cwr"][:, None],
+            torch.zeros((16, 8, 1), dtype=torch.int32, device=state.device),
+            mode=mode, plan=plan, node_lanes=g0)
+        perm = t["perm"].long()
+        w = perm.shape[0]
+        blocks = planes_to_limbs(values).reshape(w, 32 * g0, 4)[perm]
+        bits = unpack_select_bits(ctrl).reshape(w, 32 * g0)[perm]
+        return (blocks.transpose(0, 1)[:n0].reshape(-1, 4),
+                bits.transpose(0, 1)[:n0].reshape(-1))
+
+    def _leaf_values(self, blocks, control, vc, key: DpfKey, hierarchy_level: int):
+        """Full-expansion leaf values int32[n * cepb, nlimbs], domain order
+        (vc: the level's value correction, int32[epb, nlimbs])."""
+        vt = self.parameters[hierarchy_level].value_type
+        cepb = 1 << (self.parameters[hierarchy_level].log_domain_size
+                     - self._hierarchy_to_tree[hierarchy_level])
+        return _leaf_stage(blocks, control, vc, vt, cepb, key.party)
+
+    def evaluate_next(self, prefixes: Sequence[int], ctx: EvaluationContext):
+        """Evaluate the hierarchy level after `ctx.previous_hierarchy_level`:
+        on the first call `prefixes` is empty (full expansion of level 0);
+        later it holds domain indices of the previous level whose subtrees
+        to expand."""
+        return self.evaluate_until(ctx.previous_hierarchy_level + 1, prefixes, ctx)
+
+    def evaluate_until(self, hierarchy_level: int, prefixes: Sequence[int],
+                       ctx: EvaluationContext):
+        """Hierarchical evaluation up to `hierarchy_level`.
+
+        Returns int32[len(prefixes) * 2^(lds_level - lds_prev), nlimbs] (or
+        the full domain on the first call), in domain order grouped by
+        prefix. Everything a call copies to the device moves in one copy
+        before its first launch, and nothing comes back to the host."""
+        key = ctx.key
+        self._validate_key(key)
+        if hierarchy_level < 0 or hierarchy_level >= len(self.parameters):
+            raise ValueError("hierarchy_level out of range")
+        if hierarchy_level <= ctx.previous_hierarchy_level:
+            raise ValueError(
+                "hierarchy_level must be greater than ctx.previous_hierarchy_level")
+        if (ctx.previous_hierarchy_level < 0) != (len(prefixes) == 0):
+            raise ValueError("prefixes must be empty iff this is the first call with ctx")
+        prev_hl = ctx.previous_hierarchy_level
+        prev_lds = self.parameters[prev_hl].log_domain_size if prev_hl >= 0 else 0
+        lds = self.parameters[hierarchy_level].log_domain_size
+        if lds - prev_lds > 62:
+            raise ValueError(
+                "output size would exceed 2^62; evaluate fewer hierarchy levels at once")
+        for prefix in prefixes:
+            if not (0 <= prefix < (1 << prev_lds)):
+                raise ValueError(f"prefix {prefix} out of range")
+        dev = self._dev()
+        stop_level = self._hierarchy_to_tree[hierarchy_level]
+        vc = self._value_correction_np(key, hierarchy_level)
+
+        if not prefixes:
+            root = (aes.u128_to_limbs(key.seed)[None, :],
+                    np.array([key.party], dtype=np.uint32))
+            meta, arrays = self._expansion_arrays(key, 0, stop_level, 1, root)
+            (t,) = _to_device(dev, {"vc": vc, **arrays})
+            blocks, control = self._expand(meta, t)
+            out = self._leaf_values(blocks, control, t["vc"], key, hierarchy_level)
+            ctx.previous_hierarchy_level = hierarchy_level
+            return out
+
+        # Unique tree indices and the block index of each prefix (packed
+        # value types: several prefixes share a tree node).
+        tree_indices: List[int] = []
+        tree_pos: Dict[int, int] = {}
+        prefix_map: List[Tuple[int, int]] = []
+        for prefix in prefixes:
+            ti = self._domain_to_tree_index(prefix, prev_hl)
+            bi = self._domain_to_block_index(prefix, prev_hl)
+            if ti not in tree_pos:
+                tree_pos[ti] = len(tree_indices)
+                tree_indices.append(ti)
+            prefix_map.append((tree_pos[ti], bi))
+
+        start_level = self._hierarchy_to_tree[prev_hl]
+        # The per-prefix output spans of the expanded values.
+        outputs_per_prefix = 1 << (lds - prev_lds)
+        cepb = 1 << (lds - stop_level)
+        span = (1 << (stop_level - start_level)) * cepb
+        idx = np.empty((len(prefixes), outputs_per_prefix), dtype=np.int64)
+        base = np.arange(outputs_per_prefix, dtype=np.int64)
+        for i, (tp, bi) in enumerate(prefix_map):
+            idx[i] = tp * span + bi * outputs_per_prefix + base
+        meta, arrays = self._expansion_arrays(key, start_level, stop_level,
+                                              len(tree_indices))
+        walk, t = _to_device(dev, self._resume_arrays(ctx, tree_indices, prev_hl),
+                             {"vc": vc, "idx": idx.reshape(-1), **arrays})
+        seeds, control = self._resume(ctx, walk, tree_indices, prev_hl,
+                                      hierarchy_level < len(self.parameters) - 1)
+        blocks, control = self._expand(meta, t, seeds, control)
+        values = self._leaf_values(blocks, control, t["vc"], key, hierarchy_level)
+        ctx.previous_hierarchy_level = hierarchy_level
+        return values[t["idx"].long()]
+
+    def evaluate_at(self, key: DpfKey, hierarchy_level: int,
+                    evaluation_points: Sequence[int],
+                    ctx: Optional[EvaluationContext] = None):
+        """Evaluate `key` at points of the hierarchy level's domain: returns
+        int32[len(evaluation_points), nlimbs]. Without `ctx` every path
+        walks from the root with the key's shared corrections (K8 per tree
+        level); with it the walk resumes from, and updates, the context."""
+        if ctx is not None and ctx.key is not key:
+            raise ValueError("key and ctx.key must be the same object")
+        self._validate_key(key)
+        if not (0 <= hierarchy_level < len(self.parameters)):
+            raise ValueError("hierarchy_level out of range")
+        lds = self.parameters[hierarchy_level].log_domain_size
+        for pt in evaluation_points:
+            if not (0 <= pt < (1 << lds)):
+                raise ValueError(f"evaluation point {pt} out of range")
+        dev = self._dev()
+        vt = self.parameters[hierarchy_level].value_type
+        n = len(evaluation_points)
+        if n == 0:
+            return vt.dev_zeros((0,), dev)
+
+        tree_indices = [self._domain_to_tree_index(pt, hierarchy_level)
+                        for pt in evaluation_points]
+        walk_ctx = ctx if ctx is not None else EvaluationContext(key=key)
+        walk, t = _to_device(
+            dev, self._resume_arrays(walk_ctx, tree_indices, hierarchy_level),
+            {"vc": self._value_correction_np(key, hierarchy_level),
+             "block_indices": [self._domain_to_block_index(pt, hierarchy_level)
+                               for pt in evaluation_points]})
+        seeds, control = self._resume(walk_ctx, walk, tree_indices, hierarchy_level,
+                                      ctx is not None)
+        if ctx is not None:
+            ctx.previous_hierarchy_level = hierarchy_level
+        blocks = _value_hash(seeds, self._blocks_needed[hierarchy_level])
+        return _leaf_stage_at(blocks, control, t["vc"], t["block_indices"].long(),
+                              vt, key.party)
+
+    def _multi_key_values(self, staged: StagedKeyBatch,
+                          evaluation_points: Sequence[int],
+                          evaluation_points_rightshift: int) -> list:
+        """The multi-key engine: key k of `staged` walks the path of point k
+        through every tree level (K8 in per-seed mode, one launch per level),
+        the walk states at each hierarchy level's tree level are kept, one
+        K3 launch hashes them all (every ported value type fits one
+        block), and one leaf stage per value type corrects them. Returns
+        per hierarchy level the keys' values int32[n, nlimbs], each party-1
+        key's negated."""
+        n = staged.n
+        if n != len(evaluation_points):
+            raise ValueError("keys and evaluation_points size mismatch")
+        dev = staged.parties.device
+        lanes = staged.parties.shape[0]
+        rs = evaluation_points_rightshift
+        last_lds = self.parameters[-1].log_domain_size
+        paths = _points_to_limbs(evaluation_points, lanes)
+        # Tree level t reads path bit (last_lds - 1 - t + rightshift), in
+        # every hierarchy level alike.
+        levels = self._hierarchy_to_tree[-1]
+        bits = [last_lds - 1 - t + rs for t in range(levels)]
+        block_indices = np.zeros((len(self.parameters), lanes), dtype=np.uint32)
+        for hl, p in enumerate(self.parameters):
+            drs = rs + last_lds - p.log_domain_size
+            if p.log_domain_size > self._hierarchy_to_tree[hl]:  # packed blocks
+                block_indices[hl, :n] = [
+                    self._domain_to_block_index(pt >> drs if drs < 128 else 0, hl)
+                    for pt in evaluation_points]
+        groups: Dict[ValueType, List[int]] = {}
+        for hl, p in enumerate(self.parameters):
+            groups.setdefault(p.value_type, []).append(hl)
+        sel, block_indices, *group_idx = to_tensors(
+            [pack_select_bits_np(_path_bits(paths, bits)), block_indices,
+             *groups.values()], dev)
+
+        state, ctrl = staged.state, staged.ctrl
+        states, ctrls = [], []
+        t = 0
+        for stop in self._hierarchy_to_tree:
+            state, ctrl = _eval_paths(
+                state, ctrl, sel[t:stop], staged.cw_planes[t:stop],
+                staged.cw_left[t:stop], staged.cw_right[t:stop])
+            t = stop
+            states.append(state)
+            ctrls.append(ctrl)
+        num_hl = len(self.parameters)
+        hashed = _hash_planes(torch.cat(states, dim=-1))
+        blocks = planes_to_limbs(hashed).reshape(num_hl, lanes, 1, 4)
+        control = unpack_select_bits(torch.cat(ctrls)).reshape(num_hl, lanes)
+
+        out = [None] * num_hl
+        negate = staged.parties != 0
+        for (vt, hls), idx in zip(groups.items(), group_idx):
+            idx = idx.long()
+            values = _leaf_stage_at(
+                blocks[idx], control[idx],
+                torch.stack([staged.value_corrections[hl] for hl in hls]),
+                block_indices[idx].long(), vt, -1)
+            values = vt.dev_where(negate, vt.dev_neg(values), values)
+            for i, hl in enumerate(hls):
+                out[hl] = values[i, :n]
+        return out
+
+    def evaluate_and_accumulate(self, staged: StagedKeyBatch,
+                                evaluation_points: Sequence[int],
+                                level_masks: np.ndarray,
+                                evaluation_points_rightshift: int = 0):
+        """Multi-key evaluation with a masked sum over hierarchy levels:
+        `out[k] = sum of value_hl[k] over the levels hl with
+        level_masks[hl, k]` (the DCF's accumulator). Every hierarchy level
+        must share one value type. Returns int32[n, nlimbs]."""
+        if staged.n != len(evaluation_points):
+            raise ValueError("keys and evaluation_points size mismatch")
+        vt = self.parameters[0].value_type
+        if any(p.value_type != vt for p in self.parameters[1:]):
+            raise ValueError(
+                "evaluate_and_accumulate requires a single value type across "
+                "hierarchy levels")
+        num_hl = len(self.parameters)
+        level_masks = np.asarray(level_masks, dtype=bool)
+        if level_masks.shape != (num_hl, staged.n):
+            raise ValueError(f"level_masks must be [{num_hl}, {staged.n}] booleans")
+        masks = to_tensor(level_masks, staged.parties.device) != 0  # before any launch
+        values = torch.stack(self._multi_key_values(
+            staged, evaluation_points, evaluation_points_rightshift))
+        values = vt.dev_where(masks, values, torch.zeros_like(values))
+        # The levels' sum as a tree of pairwise group additions.
+        while values.shape[0] > 1:
+            if values.shape[0] % 2:
+                values = torch.cat([values, torch.zeros_like(values[:1])])
+            values = vt.dev_add(values[0::2], values[1::2])
+        return values[0]
+
+    def evaluate_and_apply(self, keys: Sequence[DpfKey],
+                           evaluation_points: Sequence[int], op,
+                           evaluation_points_rightshift: int = 0,
+                           staged: Optional[StagedKeyBatch] = None):
+        """Evaluate many keys, each at its own point, at every hierarchy
+        level, and call `op(values, hierarchy_level)` per level in order
+        (values int32[len(keys), nlimbs]); a False from `op` stops the
+        calls. The walk of all levels runs first, in one pass. Pass a
+        `staged` batch from `stage_key_batch` to reuse its staging (then
+        `keys` may be None)."""
+        if staged is None:
+            if keys is None:
+                raise ValueError("either keys or staged must be provided")
+            staged = self.stage_key_batch(keys)
+        elif keys is not None and len(keys) != staged.n:
+            raise ValueError("keys and staged batch size mismatch")
+        values = self._multi_key_values(
+            staged, evaluation_points, evaluation_points_rightshift)
+        for hl, v in enumerate(values):
+            if op(v, hl) is False:
+                break
+
+    # -- internals ----------------------------------------------------------
+
+    def _domain_to_tree_index(self, domain_index: int, hierarchy_level: int) -> int:
+        bits = (self.parameters[hierarchy_level].log_domain_size
+                - self._hierarchy_to_tree[hierarchy_level])
+        return domain_index >> bits
+
+    def _domain_to_block_index(self, domain_index: int, hierarchy_level: int) -> int:
+        bits = (self.parameters[hierarchy_level].log_domain_size
+                - self._hierarchy_to_tree[hierarchy_level])
+        return domain_index & ((1 << bits) - 1)

@@ -1,8 +1,10 @@
 """Carry state across from the JAX package, through plain numpy and bytes.
 
-The port never touches a JAX object: a caller holding JAX-package keys
-stages them there (`pir.dense_eval.stage_keys_host(keys, 0)`, numpy
-output) and rebuilds them here; records are plain bytes.
+The port never touches a JAX object. A caller holding JAX-package keys
+hands over their plain fields (Python ints, bools, lists of ints, numpy
+arrays): staged dense-PIR key arrays (`keys_from_arrays`), or one DPF or
+DCF key field by field, value corrections of incremental keys included
+(`dpf_key_from_fields`, `dcf_key_from_fields`). Records are plain bytes.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from .dcf import DcfKey
 from .dpf import CorrectionWord, DpfKey
 from .ops.aes import limbs_to_u128
 from .pir.database import DenseDpfPirDatabase
@@ -55,6 +58,37 @@ def keys_from_arrays(
             )
         )
     return keys
+
+
+def dpf_key_from_fields(seed, party, correction_words,
+                        last_level_value_correction) -> DpfKey:
+    """The port's `DpfKey` from a key's plain fields: `seed` and `party`
+    ints; `correction_words` a sequence of (seed, control_left,
+    control_right, value_correction) with value_correction None or a
+    sequence of ints; `last_level_value_correction` a sequence of ints."""
+    if party not in (0, 1):
+        raise ValueError("party must be 0 or 1")
+    cws = [
+        CorrectionWord(
+            seed=int(cw_seed),
+            control_left=bool(left),
+            control_right=bool(right),
+            value_correction=None if vc is None else [int(v) for v in vc],
+        )
+        for cw_seed, left, right, vc in correction_words
+    ]
+    return DpfKey(
+        seed=int(seed), party=int(party), correction_words=cws,
+        last_level_value_correction=[int(v) for v in last_level_value_correction],
+    )
+
+
+def dcf_key_from_fields(seed, party, correction_words,
+                        last_level_value_correction) -> DcfKey:
+    """The port's `DcfKey` from the plain fields of its DPF key (as
+    `dpf_key_from_fields`)."""
+    return DcfKey(dpf_key_from_fields(seed, party, correction_words,
+                                      last_level_value_correction))
 
 
 def database_from_records(

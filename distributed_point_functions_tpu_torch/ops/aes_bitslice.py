@@ -57,29 +57,25 @@ def _transpose32(x: torch.Tensor) -> torch.Tensor:
 
 
 def limbs_to_planes(blocks: torch.Tensor) -> torch.Tensor:
-    """int32[G*32, 4] limb blocks -> int32[16, 8, G] bit planes."""
+    """int32[G*32, 4] limb blocks -> int32[16, 8, G] bit planes. The four
+    limbs transpose in one batch: each transpose step is one small op for
+    all of them, not four."""
     n = blocks.shape[0]
     if n % 32:
         raise ValueError("block count must be a multiple of 32")
     g = n // 32
-    x = blocks.reshape(g, 32, 4)
-    planes = [
-        _transpose32(x[:, :, l].contiguous()).movedim(-1, 0)  # [32, g]
-        for l in range(4)
-    ]
+    x = blocks.reshape(g, 32, 4).permute(2, 0, 1).contiguous()  # [limb, g, 32]
+    planes = _transpose32(x).movedim(-1, 1)  # [limb, bit, g]
     # limb l bit b -> byte 4l + b//8, bit b%8
-    return torch.stack(planes, dim=0).reshape(16, 8, g).contiguous()
+    return planes.reshape(16, 8, g).contiguous()
 
 
 def planes_to_limbs(planes: torch.Tensor) -> torch.Tensor:
     """int32[16, 8, G] bit planes -> int32[G*32, 4] limb blocks."""
     g = planes.shape[-1]
     stacked = planes.reshape(4, 32, g)  # [limb, bit-within-limb, group]
-    limbs = [
-        _transpose32(stacked[l].movedim(0, -1).contiguous())  # [g, 32]
-        for l in range(4)
-    ]
-    return torch.stack(limbs, dim=-1).reshape(g * 32, 4)
+    limbs = _transpose32(stacked.movedim(1, -1).contiguous())  # [limb, g, 32]
+    return limbs.permute(1, 2, 0).reshape(g * 32, 4).contiguous()
 
 
 def _sub_bytes_planes(state: torch.Tensor) -> torch.Tensor:
@@ -179,6 +175,47 @@ def mmo_hash_planes(
     """H(x) = AES_k(sigma(x)) ^ sigma(x), entirely in plane layout."""
     s = sigma_planes(state)
     return aes_rounds_planes(round_keys, s) ^ s
+
+
+def broadcast_cw_planes(cw: torch.Tensor) -> torch.Tensor:
+    """int32[..., 4] 128-bit correction words -> all-ones/all-zeros plane
+    masks int32[..., 16, 8, 1] (one word column, read by every column):
+    limb l bit b is flat plane 32l + b, the `limbs_to_planes` layout."""
+    shifts = torch.arange(32, dtype=torch.int32, device=cw.device)
+    bits = (cw[..., :, None] >> shifts) & 1  # [..., 4, 32]
+    return (-bits).reshape(cw.shape[:-1] + (16, 8, 1))
+
+
+def limbs_to_planes_np(blocks: np.ndarray) -> np.ndarray:
+    """`limbs_to_planes` on the host: uint32[..., N, 4] (N % 32 == 0) ->
+    uint32[..., 16, 8, N/32], so that staging moves planes to the device
+    in its one copy."""
+    b = np.ascontiguousarray(blocks, dtype="<u4")
+    n = b.shape[-2]
+    if n % 32:
+        raise ValueError("block count must be a multiple of 32")
+    bits = np.unpackbits(b.view(np.uint8).reshape(b.shape[:-1] + (16,)),
+                         axis=-1, bitorder="little")  # [..., N, 128]
+    packed = np.packbits(np.swapaxes(bits, -1, -2), axis=-1, bitorder="little")
+    planes = np.ascontiguousarray(packed).view("<u4")  # [..., 128, N/32]
+    return planes.reshape(b.shape[:-2] + (16, 8, n // 32)).astype(np.uint32)
+
+
+def pack_select_bits_np(bits: np.ndarray) -> np.ndarray:
+    """`pack_select_bits` on the host: [..., N] 0/1 (N % 32 == 0) ->
+    uint32[..., N/32]."""
+    b = np.asarray(bits).astype(np.uint8) & 1
+    if b.shape[-1] % 32:
+        raise ValueError("lane count must be a multiple of 32")
+    packed = np.packbits(b, axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed).view("<u4").astype(np.uint32)
+
+
+def unpack_select_bits(words: torch.Tensor) -> torch.Tensor:
+    """int32[G] packed words -> int32[32G] 0/1 (lane 32g+i = bit i of
+    word g), the inverse of `pack_select_bits`."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> shifts) & 1).reshape(-1)
 
 
 def pack_select_bits(bits: torch.Tensor) -> torch.Tensor:

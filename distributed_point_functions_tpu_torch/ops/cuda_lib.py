@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 
-SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu")
+SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu", "path_level.cu")
 LIB_NAME = "libdpf_kernels.so"
 HEADERS = ("aes_generated.cuh", "expand_body.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,7 +42,7 @@ NVCC_FLAGS = ARCH + (
 
 LAUNCHES = {
     "expand_level": 0, "value_hash": 0, "xor_inner_product": 0,
-    "walk_descend": 0, "expand_head": 0, "expand_tail": 0,
+    "walk_descend": 0, "expand_head": 0, "expand_tail": 0, "path_level": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,6 +53,7 @@ _SIGNATURES = {
     "dpf_xor_inner_product": [_P] * 3 + [_I64, _I64, _I64, ctypes.c_int, _P],
     "dpf_walk_descend": [_P] * 8 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
     "dpf_expand_levels": [_P] * 12 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
+    "dpf_path_level": [_P] * 8 + [_I64, _I64, _P],
 }
 
 _lock = threading.Lock()

@@ -20,11 +20,17 @@ The counterpart of the JAX package's `ops/expand_planes_pallas.py`.
 * `expand_head` (K6) -- the first r doubling levels over the whole
   narrow width in one launch, doubling order. Replaces `_head_kernel`
   (`ops/expand_planes_pallas.py:453`).
+* `path_level` (K8) -- one path-walk level: each column hashes once with
+  the left or right key as its packed path bit says (select-key AES),
+  then the seed correction, the control bit out of plane 0, and the
+  direction correction of the path's branch. Replaces `_path_kernel`
+  (`ops/expand_planes_pallas.py:946`).
 
 For a CPU tensor each wrapper runs its plain PyTorch version (the
 `*_plain` functions, built on `aes_bitslice.py`: K4-K6 are K2's level and
 K3's hash composed); for a CUDA tensor it launches the hand-written kernel
-(`csrc/expand_planes.cu`, `csrc/expand_fused.cu`) or raises. There is no
+(`csrc/expand_planes.cu`, `csrc/expand_fused.cu`, `csrc/path_level.cu`)
+or raises. There is no
 fallback from one to the other.
 
 Bound on the H100: 32-bit integer logic. A child of one 32-lane word
@@ -402,3 +408,48 @@ def expand_tail(state, ctrl, cwp, cwl, cwr, vc, tile_lanes: int):
         return expand_tail_plain(state, ctrl, cwp, cwl, cwr, vc, tile_lanes)
     return _launch_doubling("expand_tail", state, ctrl, cwp, cwl, cwr, vc,
                             g0, kg, r, tile_lanes)
+
+
+def path_level_plain(state, ctrl, sel, cwp, cwl, cwr):
+    """Plain version of K8 (the JAX package's `dpf._eval_paths_planes`
+    scan body): sigma, the select-key AES MMO hash (key `RK_RIGHT` where a
+    lane's `sel` bit is 1), the seed correction under the control bit, the
+    control bit out of plane 0 (cleared), then the direction correction of
+    the branch each lane took."""
+    g = state.shape[-1]
+    sig = sigma_planes(state)
+    h = aes_rounds_select_planes(fixed_keys.RK_LEFT, fixed_keys.RK_RIGHT, sel, sig)
+    h = h ^ sig ^ (tile_keys(cwp, g) & ctrl[None, None, :])
+    t_new = h[0, 0].clone()
+    h[0, 0] = 0
+    cw_dir = (sel & tile_keys(cwr, g)) | (~sel & tile_keys(cwl, g))
+    return h, t_new ^ (ctrl & cw_dir)
+
+
+def path_level(state, ctrl, sel, cwp, cwl, cwr):
+    """K8: one path-walk level at constant width.
+
+    state: int32[16, 8, G]; ctrl: int32[G] packed control bits; sel:
+    int32[G] packed path bits (1 -> right child); cwp: int32[16, 8, KW]
+    correction planes and cwl / cwr: int32[KW] packed direction words, read
+    at column m % KW. KW = G is the per-seed mode (each lane its own key's
+    corrections, the multi-key engine); KW = 1 with all-ones/all-zeros
+    words (`broadcast_cw_planes`) is one key's shared corrections. Returns
+    (state int32[16, 8, G], ctrl int32[G])."""
+    g, kw = _check_level_args(state, ctrl, cwp, (cwl, cwr))
+    _check_words(sel, "sel", (g,), state.device)
+    if state.device.type == "cpu":
+        return path_level_plain(state, ctrl, sel, cwp, cwl, cwr)
+    lib = cuda_lib.library()
+    out = torch.empty((16, 8, g), dtype=torch.int32, device=state.device)
+    out_ctrl = torch.empty((g,), dtype=torch.int32, device=state.device)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = lib.dpf_path_level(
+            state.data_ptr(), ctrl.data_ptr(), sel.data_ptr(), cwp.data_ptr(),
+            cwl.data_ptr(), cwr.data_ptr(), out.data_ptr(), out_ctrl.data_ptr(),
+            g, kw, stream,
+        )
+    cuda_lib.LAUNCHES["path_level"] += 1
+    cuda_lib.check(err, "path_level")
+    return out, out_ctrl

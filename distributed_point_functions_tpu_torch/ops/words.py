@@ -37,3 +37,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected int32 words, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def to_tensors(arrays, device) -> list:
+    """numpy uint32 arrays -> int32 tensors on `device` of the same shapes,
+    moved in ONE host-to-device copy (views of one flat buffer)."""
+    arrays = [np.asarray(a, dtype=np.uint32) for a in arrays]
+    flat = to_tensor(np.concatenate([a.ravel() for a in arrays]), device)
+    out, offset = [], 0
+    for a in arrays:
+        out.append(flat[offset : offset + a.size].view(a.shape))
+        offset += a.size
+    return out

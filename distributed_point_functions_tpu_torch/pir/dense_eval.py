@@ -21,7 +21,7 @@ from .. import keys as fixed_keys
 from ..device import resolve_device
 from ..dpf import DpfKey
 from ..ops import aes
-from ..ops.words import to_tensor
+from ..ops.words import to_tensors
 
 _CLEAR_LSB = np.array(
     [0xFFFFFFFE, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF], dtype=np.uint32
@@ -95,12 +95,5 @@ def stage_keys(
     """`stage_keys_host`, placed on `device` as int32 tensors in ONE
     host-to-device copy (the six arrays are views of one flat buffer)."""
     dev = resolve_device(device)
-    blocks = stage_keys_host(keys, host_walk_levels)
-    flat = to_tensor(np.concatenate([b.ravel() for b in blocks]), dev)
-    out = []
-    offset = 0
-    for b in blocks:
-        out.append(flat[offset : offset + b.size].view(b.shape))
-        offset += b.size
-    return tuple(out)
+    return tuple(to_tensors(stage_keys_host(keys, host_walk_levels), dev))
 

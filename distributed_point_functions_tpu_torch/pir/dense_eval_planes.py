@@ -22,7 +22,9 @@ reaches `HEAD_MAX_LANES` word columns (2,048), at least 2 levels
 (`auto_head_count`); the walk tail takes `TAIL_LEVELS` (4) levels; the
 fused tail shrinks until its entry tile holds `TAIL_TILE_LANES` (128)
 columns (`tail_split`). `expansion_plan` takes other splits, and
-`evaluate_planned` runs one.
+`evaluate_planned` runs one. `expand_planned` is the phases of a plan on
+planes alone, shared with the DPF's full-domain expansion (`dpf.py`,
+one key's corrections at KG = 1).
 
 Each phase leaves its leaves in its own order: doubling phases append
 [all-left; all-right] per level (per tile for K5), walk phases emit
@@ -225,8 +227,6 @@ def evaluate_planned(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
     nkp = nk + pad_keys
     kg = nkp // 32
     levels = expand_levels
-    head, tail, tile_nodes = plan
-    walk = mode == "walk"
 
     # Enter plane space once.
     state = limbs_to_planes(seeds0.contiguous())  # [16, 8, KG]
@@ -241,30 +241,49 @@ def evaluate_planned(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
     cwl = pack_key_bits(cw_left[:levels].reshape(-1)).reshape(levels, kg)
     cwr = pack_key_bits(cw_right[:levels].reshape(-1)).reshape(levels, kg)
     vc = pack_key_planes(last_vc.contiguous())
-
-    if head:
-        head_fn = walk_descend if walk else expand_head
-        state, ctrl = head_fn(state, ctrl, cwp[:head], cwl[:head], cwr[:head])
-    for lvl in range(head, levels - tail):
-        state, ctrl = expand_level(state, ctrl, cwp[lvl], cwl[lvl], cwr[lvl])
     # Leaf value blocks: output PRG + XOR value correction (party
     # negation is the identity for XOR shares).
-    a = levels - tail
-    if tail and walk:
-        values, _ = walk_descend(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
-                                 value_hash=True)
-    elif tail:
-        values, _ = expand_tail(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
-                                tile_nodes * kg)
-    else:
-        values = value_hash(state, ctrl, vc)
+    values, _ = expand_planned(state, ctrl, cwp, cwl, cwr, vc, mode=mode,
+                               plan=plan, node_lanes=kg)
+    head, tail, tile_nodes = plan
 
     # Leave plane space once: [w * nkp, 4] node-major -> [nkp, w, 4].
     w = 1 << levels
     out = planes_to_limbs(values).reshape(w, nkp, 4).transpose(0, 1)
-    perm = exit_permutation(levels, head, tail, tile_nodes, walk, num_blocks)
+    perm = exit_permutation(levels, head, tail, tile_nodes, mode == "walk",
+                            num_blocks)
     out = out[:, torch.from_numpy(perm).to(out.device), :]
     if out.shape[1] < num_blocks:
         # Blocks beyond the tree's capacity can only select zero rows.
         out = F.pad(out, (0, 0, 0, num_blocks - out.shape[1]))
     return out[:nk].contiguous()
+
+
+def expand_planned(state, ctrl, cwp, cwl, cwr, vc, *, mode: str, plan: tuple,
+                   node_lanes: int):
+    """The phases of one planned expansion in plane layout: the head (K4
+    or K6), K2 per middle level, then the tail (K4 or K5) or K3, ending in
+    the leaf value hash. state int32[16, 8, G0]; ctrl int32[G0]; cwp
+    int32[L, 16, 8, KW]; cwl / cwr int32[L, KW]; vc int32[16, 8, KW] (KW
+    divides `node_lanes`, the word columns of one tree node); `plan` from
+    `expansion_plan(mode, node_lanes, L)`. Returns (values int32[16, 8, G0
+    << L], leaf ctrl int32[G0 << L]) in the plan's leaf order
+    (`exit_permutation`)."""
+    levels = cwp.shape[0]
+    head, tail, tile_nodes = plan
+    walk = mode == "walk"
+    if head and walk:
+        state, ctrl = walk_descend(state, ctrl, cwp[:head], cwl[:head], cwr[:head],
+                                   node_lanes=node_lanes)
+    elif head:
+        state, ctrl = expand_head(state, ctrl, cwp[:head], cwl[:head], cwr[:head])
+    for lvl in range(head, levels - tail):
+        state, ctrl = expand_level(state, ctrl, cwp[lvl], cwl[lvl], cwr[lvl])
+    a = levels - tail
+    if tail and walk:
+        return walk_descend(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
+                            value_hash=True, node_lanes=node_lanes)
+    if tail:
+        return expand_tail(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
+                           tile_nodes * node_lanes)
+    return value_hash(state, ctrl, vc), ctrl

@@ -6,7 +6,8 @@
   to the CPU on its own.
 * CPU tensors go through the plain versions and leave the kernel launch
   counters at 0; a tensor on any other device raises.
-* No `try` on the port's serving path gives way to a plain version.
+* No `try` on the port's serving path or in its DPF/DCF evaluation gives
+  way to a plain version.
 """
 
 import ast
@@ -20,7 +21,12 @@ import pytest
 import torch
 
 import distributed_point_functions_tpu_torch as port
+from distributed_point_functions_tpu_torch.dcf import DistributedComparisonFunction
 from distributed_point_functions_tpu_torch.device import resolve_device
+from distributed_point_functions_tpu_torch.dpf import (
+    DistributedPointFunction,
+    DpfParameters,
+)
 from distributed_point_functions_tpu_torch.ops import cuda_lib
 from distributed_point_functions_tpu_torch.ops import expand_planes as ep
 from distributed_point_functions_tpu_torch.ops import inner_product_kernels as ipk
@@ -30,6 +36,8 @@ from distributed_point_functions_tpu_torch.pir import (
     DenseDpfPirServer,
 )
 from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
+from distributed_point_functions_tpu_torch.ops.words import to_numpy
+from distributed_point_functions_tpu_torch.value_types import IntType
 
 PORT_DIR = Path(port.__file__).resolve().parent
 REPO = PORT_DIR.parent
@@ -43,6 +51,8 @@ def _port_modules():
 
 
 def test_import_loads_no_jax():
+    assert {"distributed_point_functions_tpu_torch.dpf",
+            "distributed_point_functions_tpu_torch.dcf"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -81,6 +91,39 @@ def test_server_default_device_does_not_fall_back(no_cuda):
         stage_keys(keys.plain_request.dpf_keys)
 
 
+def test_dpf_and_dcf_default_device_does_not_fall_back(no_cuda):
+    dpf = DistributedPointFunction.create(DpfParameters(6, IntType(64)))
+    k0, _ = dpf.generate_keys(5, 9)  # key generation runs on the host
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dpf.evaluate_at(k0, 0, [5])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dpf.evaluate_until(0, [], dpf.create_evaluation_context(k0))
+    dcf = DistributedComparisonFunction.create(8, IntType(64))
+    keys = dcf.generate_keys(100, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dcf.batch_evaluate(list(keys), [7, 7])
+
+
+@pytest.mark.parametrize("expansion", ["walk", "tail", "level"])
+def test_dpf_and_dcf_on_cpu_count_no_launch(expansion):
+    cuda_lib.reset_launch_counts()
+    dpf = DistributedPointFunction.create(DpfParameters(12, IntType(64)), device="cpu")
+    dpf._expansion = expansion
+    k0, k1 = dpf.generate_keys(3000, 9)
+    shares = [dpf.evaluate_until(0, [], dpf.create_evaluation_context(k))
+              for k in (k0, k1)]
+    u64 = [to_numpy(t).astype(np.uint64) for t in shares]
+    total = sum(u[:, 0] | (u[:, 1] << np.uint64(32)) for u in u64)
+    assert np.flatnonzero(total).tolist() == [3000] and int(total[3000]) == 9
+    assert dpf.evaluate_at(k0, 0, [3000]).tolist() == shares[0][3000:3001].tolist()
+    dcf = DistributedComparisonFunction.create(8, IntType(64), device="cpu")
+    dcf.batch_evaluate(list(dcf.generate_keys(100, 3)), [7, 7])
+    assert not any(cuda_lib.LAUNCHES.values()), cuda_lib.LAUNCHES
+    dpf._expansion = "pallas"
+    with pytest.raises(ValueError):
+        dpf.evaluate_until(0, [], dpf.create_evaluation_context(k0))
+
+
 def test_server_rejects_a_database_on_another_device():
     db = DenseDpfPirDatabase([b"x"] * 10, device="cpu")
     with pytest.raises(ValueError):
@@ -102,7 +145,7 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     ]
     assert cuda_lib.LAUNCHES == {
         "expand_level": 0, "value_hash": 0, "xor_inner_product": 0,
-        "walk_descend": 0, "expand_head": 0, "expand_tail": 0,
+        "walk_descend": 0, "expand_head": 0, "expand_tail": 0, "path_level": 0,
     }
 
 
@@ -149,6 +192,12 @@ def test_wrappers_raise_for_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ep.expand_tail(*fused, torch.empty((16, 8, 1), **meta), 1)
     with pytest.raises(ValueError, match="unsupported device"):
+        ep.path_level(
+            torch.empty((16, 8, 4), **meta), torch.empty((4,), **meta),
+            torch.empty((4,), **meta), torch.empty((16, 8, 1), **meta),
+            torch.empty((1,), **meta), torch.empty((1,), **meta),
+        )
+    with pytest.raises(ValueError, match="unsupported device"):
         ipk.xor_inner_product_packed(
             torch.empty((32, 8, 2), **meta), torch.empty((8, 8), **meta)
         )
@@ -157,7 +206,8 @@ def test_wrappers_raise_for_other_devices():
 @pytest.mark.parametrize(
     "module",
     ["ops/expand_planes.py", "ops/aes_bitslice.py", "ops/inner_product_kernels.py",
-     "pir/dense_eval_planes.py", "pir/database.py", "pir/server.py"],
+     "pir/dense_eval_planes.py", "pir/database.py", "pir/server.py", "dpf.py",
+     "dcf.py", "value_types.py", "ops/limb.py"],
 )
 def test_serving_path_has_no_try(module):
     tree = ast.parse((PORT_DIR / module).read_text())
