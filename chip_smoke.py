@@ -47,7 +47,8 @@ non-zero before printing a result. Phases, one JSON line each:
    .handle_plain_request`; the XOR of the shares must equal every queried
    record, and the launch counters (zeroed just before each mode's run)
    must read walk K4 = 4, K1 = 2; tail K6 = 2, K5 = 2, K1 = 2; level
-   K2 = 2 x 13, K3 = 2, K1 = 2, and nothing else. Queries per second
+   K2 = 2 x 13, K3 = 2, K1 = 2, and `leaf_blocks` = 2 in every mode, and
+   nothing else. Queries per second
    come from 16 batches per mode, the modes served in turns;
    `round_wins` is the share of rounds each mode's batch beat each other
    mode's, and `fastest` (in the breakdown lines) the mode that won nine
@@ -77,16 +78,59 @@ non-zero before printing a result. Phases, one JSON line each:
    versions' (a `device="cpu"` DPF or DCF, in the same expansion mode)
    on the same keys and points: off alpha's path both parties hold the
    same seeds, so a kernel error they share would still reconstruct.
-7. `{"kernels": [...]}`: every ported kernel with its launches on the
-   main path (the run of the mode that launches it; K1 from the default
-   mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of one launch
-   at its 32 word columns), its agreement, times (`ms` and `device_ms`)
-   and bound.
-8. `{"ok": true, "device": {...}}` as the last line.
+7. Dense PIR's other inner product and its serving tiers (the kernel
+   lines and the probe print after phase 3's, `main_path_v1` after phase
+   5's, the tiers after phase 6), the paths each run with every launch
+   count set to 0 just before it and checked just after:
+   - `kernel` lines for K7 `xor_counts` (the v1 inner product's counts, at
+     the main path's shape), K1's accumulate entry (one streaming chunk:
+     2^17 records, 1,024 queries; two half spans XORed in must equal one
+     whole call) and K9 `repeat_tiles` (the probe's [1, 2] x 2 and a
+     [256, 128] source x 32), each `torch.equal` to its plain version,
+     with registers and spills; K1, K7 and the accumulate entry also time
+     `torch._int_mm` and `torch.mm` in bf16 with float32 out on the
+     unpacked 0/1 operands (`library_ms` the faster; the unpacking
+     apart), whose counts must agree and equal K7's, and whose parity
+     must equal K1's; K9's `library_ms` is `x.repeat(1, factor)`;
+   - `kernel` lines at the tiers' shapes (configs[2], 32 word columns of
+     keys): K4's head and tail for the materialized tier's 15 levels and
+     for one streaming or chunked chunk's 10 levels from one node's 32
+     columns, K2 at every width from 32 to 32,768 columns (the streaming
+     cut state's and the materialized tier's middle levels), each
+     `torch.equal` to its plain version;
+   - `kernel` lines for `leaf_blocks` (the leaf values out of plane
+     layout into selection blocks, in the expansion's exit order: at the
+     main path's 8,192 blocks, the materialized tier's 32,768 and one
+     chunk's 1,024), each `torch.equal` to its plain version;
+   - `probe`: `interpret_repeat_tiles` on the card (one K9 launch) says
+     the kernel tiles like Mosaic;
+   - `main_path_v1`: the main path's database built with
+     `inner_product="v1"`, both parties served in the default mode: every
+     record reconstructs, K4 = 4 and K7 = 2 launches, no K1;
+   - `tier` x3 at `BASELINE.json` configs[2] (2^22 x 256 B records, 1,024
+     queries): `materialized` at the card's default budget, `streaming`
+     under a 64 MiB selection budget (`CapacityModel(selection_budget=64
+     << 20)` through `set_default_capacity_model`) and `chunked` under
+     the same budget with `set_tier_floor("chunked")`. Each prints the
+     planner's plan; the streaming and chunked responses must equal the
+     materialized tier's and reconstruct every queried record, with the
+     launch counts the plan gives (K1 = 2 x chunks); q/s, the device's
+     idle share, and the modeled against the measured peak bytes
+     (`torch.cuda.max_memory_allocated` around one party's batch), with
+     the bytes of that batch's staged keys and response rows, which the
+     model does not count, measured beside them.
+8. `{"kernels": [...]}`: every ported kernel with its launches on the
+   main path (the run of the mode or path that launches it; K1 from the
+   default mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of one
+   launch at its 32 word columns; K7 from `main_path_v1`, the accumulate
+   entry from `streaming`, K9 from `probe`, `leaf_blocks` from the default
+   mode's), its agreement, times (`ms` and `device_ms`) and bound.
+9. `{"ok": true, "device": {...}}` as the last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import statistics
@@ -102,6 +146,18 @@ SEED = 20260
 NUM_RECORDS = 1 << 20
 RECORD_BYTES = 256
 NUM_QUERIES = 128
+# BASELINE.json configs[2] (its record size is the repo's bench default,
+# bench.py:102), and the selection budget that sends it to the streaming
+# and chunked tiers (64 MiB against the 512 MiB selection matrix).
+TIER_RECORDS = 1 << 22
+TIER_QUERIES = 1024
+TIER_BUDGET = 64 << 20
+# The chunk levels of both 64 MiB plans (the tier phase checks its plans
+# against it): the kernel lines at the tiers' shapes use it.
+TIER_CHUNK_LEVELS = 10
+# int8 tensor-core rate of an H100 SXM (dense, at 700 W): the bound of a
+# count product of 0/1 operands (K7).
+INT8_OPS_PER_S = 1.979e15
 # HBM rate of the card (bytes/s), by product name; INT32 logic rate is
 # reckoned from the SM count and the max SM clock nvidia-smi reports.
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
@@ -645,6 +701,188 @@ def dpf_point_phase(rng, dev, full: dict) -> None:
           "evaluate_next_chain_ms_all": chain_times})
 
 
+def ptxas_table(report: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "smem"}} from the build's `-Xptxas -v` report."""
+    table, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            table[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in line.replace(",", " ").split() if x.isdigit()]
+            table[name]["spill_stores"], table[name]["spill_loads"] = nums[1], nums[2]
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            table[name]["registers"] = int(words[words.index("Used") + 1])
+            table[name]["smem"] = (int(words[words.index("smem") - 2])
+                                   if "smem" in words else 0)
+    return table
+
+
+def ptxas_of(table: dict, kernel: str) -> dict:
+    """The ptxas figures of the first kernel whose mangled name holds
+    `kernel`."""
+    return next(v for k, v in table.items() if kernel in k)
+
+
+def unpack_operands(db_perm, packed):
+    """The 0/1 int8 operands of the count product: selections [nq, 32G]
+    and database bits [32G, 32W], records in (b, g) order, columns in
+    (j, w) order."""
+    import torch
+
+    nq, num_groups = packed.shape
+    num_words = db_perm.shape[2]
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    sel = ((packed[:, None, :] >> shifts[None, :, None]) & 1).to(torch.int8)
+    rows = db_perm.reshape(-1, num_words)
+    bits = torch.empty((rows.shape[0], 32, num_words), dtype=torch.int8,
+                       device=packed.device)
+    for j in range(32):  # one int32 temporary of the database's size at a time
+        bits[:, j] = (rows >> j) & 1
+    return sel.reshape(nq, -1), bits.reshape(rows.shape[0], -1)
+
+
+def tier_launches(plan, mode: str, key_groups: int) -> dict:
+    """Launches of one batch of both parties on `plan`
+    (`planner.ServingPlan`) in expansion `mode`."""
+    per_party = {}
+
+    def add(counts, times=1):
+        for name, n in counts.items():
+            per_party[name] = per_party.get(name, 0) + n * times
+
+    if plan.mode == "materialized":
+        add(expansion_launches(mode, plan.expand_levels, key_groups))
+        add({"leaf_blocks": 1, "xor_inner_product": 1})
+    elif plan.mode == "streaming":
+        add({"expand_level": plan.cut_levels})
+        add(expansion_launches(mode, plan.chunk_levels, key_groups), plan.num_chunks)
+        add({"leaf_blocks": 1, "xor_inner_product": 1}, plan.num_chunks)
+    else:
+        add({"path_level": plan.cut_levels}, plan.num_chunks)
+        add(expansion_launches(mode, plan.chunk_levels, key_groups), plan.num_chunks)
+        add({"leaf_blocks": 1, "xor_inner_product": 1}, plan.num_chunks)
+    return {name: 2 * n for name, n in per_party.items() if n}
+
+
+def tiers_phase(rng, dev) -> dict:
+    """BASELINE.json configs[2]: 2^22 records of 256 B, 1,024 queries,
+    both parties, the default expansion mode, on each serving tier the
+    planner gives: materialized at the card's default budget (1/16 of its
+    memory), streaming under a 64 MiB budget, chunked under the same
+    budget with the tier floor. The streaming and chunked responses must
+    equal the materialized tier's and reconstruct every queried record.
+    Returns {tier: launch counts}."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.capacity.model import (
+        CapacityModel,
+        set_default_capacity_model,
+    )
+    from distributed_point_functions_tpu_torch.pir import (
+        DenseDpfPirClient,
+        DenseDpfPirDatabase,
+        DenseDpfPirServer,
+    )
+    from distributed_point_functions_tpu_torch.pir import server as server_mod
+    from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
+        DEFAULT_EXPANSION,
+        pack_key_batch,
+    )
+
+    t0 = time.perf_counter()
+    data = rng.bytes(TIER_RECORDS * RECORD_BYTES)
+    records = [data[i * RECORD_BYTES:(i + 1) * RECORD_BYTES] for i in range(TIER_RECORDS)]
+    db = DenseDpfPirDatabase(records)
+    db.staged()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    idx = [int(i) for i in rng.integers(0, TIER_RECORDS, TIER_QUERIES)]
+    t0 = time.perf_counter()
+    r0, r1 = DenseDpfPirClient.create(TIER_RECORDS).create_plain_requests(idx)
+    keygen_s = time.perf_counter() - t0
+
+    def serve(server):
+        s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
+        s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
+        torch.cuda.synchronize()
+        return s0, s1
+
+    reference, launches = None, {}
+    for tier, budget, floor in (("materialized", None, None),
+                                ("streaming", TIER_BUDGET, None),
+                                ("chunked", TIER_BUDGET, "chunked")):
+        set_default_capacity_model(
+            None if budget is None else CapacityModel(selection_budget=budget))
+        server_mod.set_tier_floor(floor)
+        server = DenseDpfPirServer.create_plain(db)
+        plan = server._plan_serving(TIER_QUERIES)
+        if plan.mode != tier or (tier != "materialized"
+                                 and plan.chunk_levels != TIER_CHUNK_LEVELS):
+            raise AssertionError(f"tier {tier}: the planner chose {plan}")
+        t0 = time.perf_counter()
+        serve(server)  # warm-up, and the tier's staging
+        first_s = time.perf_counter() - t0
+        out = []
+        launches[tier] = counted(
+            lambda: out.append(serve(server)),
+            tier_launches(plan, DEFAULT_EXPANSION, TIER_QUERIES // 32), f"{tier} tier")
+        shares = out[0]
+        if reference is None:
+            reference = shares
+        elif shares != reference:
+            raise AssertionError(f"{tier} tier: responses differ from the materialized tier's")
+        for a, b, i in zip(*shares, idx):
+            if bytes(x ^ y for x, y in zip(a, b)) != records[i]:
+                raise AssertionError(f"{tier} tier: record {i} does not reconstruct")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        server.handle_plain_request(r0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        # What the batch holds besides selections: its staged and packed
+        # keys, and (streaming, chunked) the response rows it XORs into.
+        before = torch.cuda.memory_allocated(dev)
+        staged = stage_keys(r0.plain_request.dpf_keys, server.walk_levels, device=dev)
+        packed_keys = pack_key_batch(*staged, server.expand_levels)
+        keys_bytes = torch.cuda.memory_allocated(dev) - before
+        del staged, packed_keys
+        response_bytes = (0 if tier == "materialized"
+                          else 32 * (-(-TIER_QUERIES // 32)) * RECORD_BYTES)
+        # Beyond those, only index vectors (4 bytes a leaf node at most)
+        # and one node's slice of the cut state may be alive.
+        allowed = (plan.selection_bytes_peak + keys_bytes + response_bytes
+                   + (4 << plan.expand_levels) + (1 << 16))
+        if peak > allowed:
+            raise AssertionError(
+                f"{tier} tier: peak {peak} B above the model's "
+                f"{plan.selection_bytes_peak} B plus keys and response ({allowed} B)")
+        times = host_ms(lambda: serve(server), 5)
+        emit({"phase": "tier", "tier": tier, "config": "BASELINE.json configs[2]",
+              "records": TIER_RECORDS, "record_bytes": RECORD_BYTES,
+              "queries": TIER_QUERIES, "expansion": DEFAULT_EXPANSION,
+              "plan": dataclasses.asdict(plan), "tier_floor": server_mod.tier_floor(),
+              "reconstructed": TIER_QUERIES, "equals_materialized": True,
+              "launches": launches[tier], "setup_s": setup_s, "keygen_s": keygen_s,
+              "first_batch_s": first_s, "batch_ms": statistics.median(times),
+              "batch_ms_all": times,
+              "queries_per_sec": TIER_QUERIES / statistics.median(times) * 1e3,
+              "modeled_selection_bytes": plan.selection_bytes_peak,
+              "measured_peak_bytes_one_party": peak,
+              "staged_keys_bytes": keys_bytes, "response_bytes": response_bytes,
+              "peak_over_model_bytes": peak - plan.selection_bytes_peak,
+              "peak_less_keys_and_response_over_model_bytes":
+                  peak - keys_bytes - response_bytes - plan.selection_bytes_peak,
+              **device_busy(lambda: server.handle_plain_request(r0))})
+    set_default_capacity_model(None)
+    server_mod.clear_tier_floor()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -660,6 +898,10 @@ def main() -> int:
     from distributed_point_functions_tpu_torch.ops import cuda_lib
     from distributed_point_functions_tpu_torch.ops import expand_planes as ep
     from distributed_point_functions_tpu_torch.ops import inner_product_kernels as ipk
+    from distributed_point_functions_tpu_torch.ops.inner_product import (
+        parity_pack,
+        xor_counts_plain,
+    )
     from distributed_point_functions_tpu_torch.ops.words import to_tensor
     from distributed_point_functions_tpu_torch.pir import (
         DenseDpfPirClient,
@@ -671,7 +913,11 @@ def main() -> int:
         DEFAULT_EXPANSION,
         EXPANSION_MODES,
         evaluate_selection_blocks_planes,
+        exit_node_blocks,
         expansion_plan,
+    )
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes_v2 import (
+        chunk_node_blocks,
     )
 
     dev = torch.device("cuda", 0)
@@ -691,8 +937,8 @@ def main() -> int:
           "int32_ops_per_s": int32_ops_per_s, "hbm_bytes_per_s": hbm,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    def bound(ops, nbytes):
-        t_ops = ops / int32_ops_per_s * 1e3
+    def bound(ops, nbytes, ops_per_s=int32_ops_per_s):
+        t_ops = ops / ops_per_s * 1e3
         t_bytes = nbytes / hbm * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -735,21 +981,22 @@ def main() -> int:
     child_ops = aes_ops[0] + 64 + 128 + 256 + 2
     value_ops = aes_ops[2] + 64 + 128 + 256
 
-    def doubling_work(g0, r, value):
+    def doubling_work(g0, r, value, kw=kg):
         """(ops, bytes) of r doubling levels from g0 columns, each tree
         node's children hashed once, plus the value hash: inputs read
-        once (state, ctrl, r levels of corrections, vc), outputs written
-        once (planes and ctrl at width g0 << r)."""
+        once (state, ctrl, r levels of corrections of kw columns, vc),
+        outputs written once (planes and ctrl at width g0 << r)."""
         w = g0 << r
         ops = 2 * g0 * ((1 << r) - 1) * child_ops + (w * value_ops if value else 0)
-        nbytes = 4 * (129 * g0 + r * 130 * kg + (128 * kg if value else 0) + 129 * w)
+        nbytes = 4 * (129 * g0 + r * 130 * kw + (128 * kw if value else 0) + 129 * w)
         return ops, nbytes
 
-    def measure(name, run, plain, ops, nbytes, plain_reps=3, plain_warmup=1):
+    def measure(name, run, plain, ops, nbytes, plain_reps=3, plain_warmup=1,
+                ops_per_s=int32_ops_per_s):
         got = run()
         want = plain()
         torch.cuda.synchronize()
-        b_ms, b_by = bound(ops, nbytes)
+        b_ms, b_by = bound(ops, nbytes, ops_per_s)
         return {"err": require_equal(name, got, want),
                 "ms": cuda_time_ms(run, reps=20),
                 "device_ms": kernel_time_ms(run),
@@ -794,9 +1041,9 @@ def main() -> int:
     emit({"phase": "kernel", "name": "value_hash", "G": g,
           "launches_per_batch": 1, **results["value_hash"]})
 
-    def fused_args(g0, r):
-        return (rand_words(16, 8, g0), rand_words(g0), rand_words(r, 16, 8, kg),
-                rand_words(r, kg), rand_words(r, kg), rand_words(16, 8, kg))
+    def fused_args(g0, r, kw=kg):
+        return (rand_words(16, 8, g0), rand_words(g0), rand_words(r, 16, 8, kw),
+                rand_words(r, kw), rand_words(r, kw), rand_words(16, 8, kw))
 
     # K4: walk mode's head (no value hash) and tail (value hash) phases.
     head, tail, _ = plans["walk"]
@@ -814,6 +1061,74 @@ def main() -> int:
               "G0": g0, "levels": r, "W": g0 << r, "value_hash": vh,
               "launches_per_batch": 1, **part})
     results["walk_descend"] = add_up(phases)
+
+    # K4 and K2 at the serving tiers' shapes (BASELINE configs[2]: 1,024
+    # queries, 32 word columns of keys): walk mode's head and tail for the
+    # materialized tier's 15 levels and for one streaming or chunked
+    # chunk's 10 levels from one node's 32 columns; K2 at every width of
+    # the streaming cut state (32 -> 512 columns) and of the materialized
+    # tier's middle levels (2,048 -> 32,768).
+    tier_kg = TIER_QUERIES // 32
+    tier_levels = ((TIER_RECORDS // 128) - 1).bit_length()
+    for label, levels in (("materialized", tier_levels), ("chunk", TIER_CHUNK_LEVELS)):
+        head, tail, _ = expansion_plan("walk", tier_kg, levels)
+        for phase, g0, r, vh in (("head", tier_kg, head, False),
+                                 ("tail", tier_kg << (levels - tail), tail, True)):
+            *args, vc = fused_args(g0, r, tier_kg)
+            part = measure(
+                f"walk_descend {label} {phase}",
+                lambda: ep.walk_descend(*args, vc, value_hash=vh),
+                lambda: ep.walk_descend_plain(*args, vc, value_hash=vh),
+                *doubling_work(g0, r, vh, tier_kg), plain_reps=1)
+            results["walk_descend"]["err"] = max(results["walk_descend"]["err"],
+                                                 part["err"])
+            emit({"phase": "kernel", "name": "walk_descend", "tier_shape": label,
+                  "walk_phase": phase, "KG": tier_kg, "G0": g0, "levels": r,
+                  "W": g0 << r, "value_hash": vh, **part})
+    _, tail, _ = expansion_plan("walk", tier_kg, tier_levels)
+    for i in range(tier_levels - tail):  # every K2 input width of both tiers
+        g = tier_kg << i
+        args = (rand_words(16, 8, g), rand_words(g), rand_words(16, 8, tier_kg),
+                rand_words(tier_kg), rand_words(tier_kg))
+        part = measure(
+            f"expand_level KG={tier_kg} G={g}", lambda: ep.expand_level(*args),
+            lambda: ep.expand_level_plain(*args), 2 * g * child_ops,
+            4 * (128 * g + g + 128 * tier_kg + 2 * tier_kg + 2 * 128 * g + 2 * g),
+            plain_reps=1)
+        results["expand_level"]["err"] = max(results["expand_level"]["err"], part["err"])
+        emit({"phase": "kernel", "name": "expand_level", "tier_shape": True,
+              "KG": tier_kg, "G": g, **part})
+
+    # leaf_blocks: leaf values out of plane layout into selection blocks,
+    # in the exit order of the main path's walk plan (8,192 blocks of 128
+    # keys), of the materialized tier's (32,768 blocks of 1,024 keys) and
+    # of one streaming chunk (1,024 blocks, bit-reversed). Bytes bound it:
+    # the planes read once, the blocks written once; a 32x32 bit transpose
+    # is 480 word operations (five rounds of 16 six-operation swaps).
+    for label, key_groups, levels, node_block in (
+            ("main", kg, expand_levels,
+             exit_node_blocks(expand_levels, *plans["walk"], True, 1 << expand_levels)),
+            ("materialized", tier_kg, tier_levels,
+             exit_node_blocks(tier_levels, *expansion_plan("walk", tier_kg, tier_levels),
+                              True, 1 << tier_levels)),
+            ("chunk", tier_kg, TIER_CHUNK_LEVELS,
+             chunk_node_blocks(TIER_CHUNK_LEVELS,
+                                expansion_plan("walk", tier_kg, TIER_CHUNK_LEVELS), True))):
+        nodes = 1 << levels
+        g = key_groups * nodes
+        values = rand_words(16, 8, g)
+        node_block = torch.from_numpy(node_block).to(dev)
+        part = measure(
+            f"leaf_blocks {label}", lambda: ep.leaf_blocks(values, node_block, nodes),
+            lambda: ep.leaf_blocks_plain(values, node_block, nodes), 4 * 480 * g,
+            4 * (128 * g + nodes) + 16 * 32 * key_groups * nodes)
+        if label == "main":
+            results["leaf_blocks"] = part
+        else:
+            results["leaf_blocks"]["err"] = max(results["leaf_blocks"]["err"], part["err"])
+        emit({"phase": "kernel", "name": "leaf_blocks", "shape": label, "KG": key_groups,
+              "nodes": nodes, **part})
+    del values
 
     # K6 and K5: tail mode's head and tiled tail.
     head, tail, tile_nodes = plans["tail"]
@@ -845,10 +1160,114 @@ def main() -> int:
         lambda: ipk.xor_inner_product_packed_plain(db_perm, packed),
         NUM_QUERIES * NUM_RECORDS * words,  # one 3-input logic op each
         4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * words))
+    ptxas = ptxas_table(cuda_lib.ptxas_report())
+
+    def library(db_perm, packed):
+        """One PyTorch call on the unpacked 0/1 operands that computes the
+        counts K7 computes, whose parity is K1's product: `torch._int_mm`
+        (int8 in, int32 out) and `torch.mm` in bf16 with float32 out (exact:
+        every count is below 2^24). Both must agree; the faster is the
+        yardstick. Returns (counts int32[nq, 32, W], a dict of `library_ms`,
+        each call's ms and the unpacking's ms)."""
+        unpack_ms = cuda_time_ms(lambda: unpack_operands(db_perm, packed), reps=3,
+                                 warmup=1)
+        sel, bits = unpack_operands(db_perm, packed)
+        counts = torch._int_mm(sel, bits)
+        int8_ms = cuda_time_ms(lambda: torch._int_mm(sel, bits), reps=10)
+        cast_ms = cuda_time_ms(lambda: (sel.to(torch.bfloat16), bits.to(torch.bfloat16)),
+                               reps=3, warmup=1)
+        sel, bits = sel.to(torch.bfloat16), bits.to(torch.bfloat16)
+        if not torch.equal(torch.mm(sel, bits, out_dtype=torch.float32).to(torch.int32),
+                           counts):
+            raise AssertionError("the bf16 and int8 count products differ")
+        bf16_ms = cuda_time_ms(lambda: torch.mm(sel, bits, out_dtype=torch.float32),
+                               reps=10)
+        return counts.reshape(packed.shape[0], 32, -1), {
+            "library_ms": min(int8_ms, bf16_ms), "library_int_mm_ms": int8_ms,
+            "library_mm_bf16_ms": bf16_ms, "library_unpack_ms": unpack_ms,
+            "library_bf16_cast_ms": cast_ms}
+
+    counts_lib, lib = library(db_perm, packed)
+    if not torch.equal(parity_pack(counts_lib), ipk.xor_inner_product_packed(db_perm, packed)):
+        raise AssertionError("xor_inner_product: the parity of the int8 product differs")
+    results["xor_inner_product"].update(lib, ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
+    results["leaf_blocks"]["ptxas"] = ptxas_of(ptxas, "leaf_blocks_kernel")
     emit({"phase": "kernel", "name": "xor_inner_product",
           "shape": [NUM_QUERIES, NUM_RECORDS, words],
           "launches_per_batch": 1, **results["xor_inner_product"]})
-    del db_perm, packed
+
+    # K7: the v1 inner product's counts on the same inputs. Its bound is the
+    # count product's: 2 operations per (query, record, value bit, word) on
+    # the int8 tensor cores.
+    results["xor_counts"] = measure(
+        "xor_counts",
+        lambda: ipk.xor_counts(db_perm, packed),
+        lambda: xor_counts_plain(db_perm, packed),
+        2 * NUM_QUERIES * NUM_RECORDS * 32 * words,
+        4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * 32 * words),
+        ops_per_s=INT8_OPS_PER_S)
+    if not torch.equal(counts_lib, ipk.xor_counts(db_perm, packed)):
+        raise AssertionError("xor_counts: the int8 product's counts differ")
+    results["xor_counts"].update(lib, ptxas=ptxas_of(ptxas, "xor_counts_kernel"))
+    emit({"phase": "kernel", "name": "xor_counts",
+          "shape": [NUM_QUERIES, NUM_RECORDS, words],
+          "launches_per_batch": 1, **results["xor_counts"]})
+    del db_perm, packed, counts_lib
+
+    # K1's accumulate entry at one streaming chunk of BASELINE configs[2]:
+    # 2^17 records, 1,024 queries; XORed into running results in place.
+    chunk_groups = (1 << 17) // 32
+    span = rand_words(32, chunk_groups, words)
+    packed = rand_words(TIER_QUERIES, chunk_groups)
+    sel = packed.reshape(TIER_QUERIES, -1, 4)
+    acc0 = rand_words(TIER_QUERIES, words)
+    acc = acc0.clone()
+    results["xor_inner_product_accumulate"] = measure(
+        "xor_inner_product_accumulate",
+        lambda: ipk.xor_inner_product_accumulate(acc, span, sel),
+        lambda: acc0 ^ ipk.xor_inner_product_packed_plain(span, packed),
+        TIER_QUERIES * (1 << 17) * words,
+        4 * (32 * chunk_groups * words + TIER_QUERIES * chunk_groups
+             + 2 * TIER_QUERIES * words))
+    halves = torch.zeros_like(acc0)
+    half = chunk_groups // 2
+    for lo in (0, half):
+        ipk.xor_inner_product_accumulate(
+            halves, span[:, lo:lo + half],
+            packed[:, lo:lo + half].reshape(TIER_QUERIES, -1, 4))
+    if not torch.equal(halves, ipk.xor_inner_product_packed(span, packed)):
+        raise AssertionError("xor_inner_product_accumulate: two halves differ from one call")
+    counts_lib, lib = library(span, packed)
+    if not torch.equal(parity_pack(counts_lib), halves):
+        raise AssertionError("xor_inner_product_accumulate: the count product differs")
+    results["xor_inner_product_accumulate"].update(
+        lib, ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
+    emit({"phase": "kernel", "name": "xor_inner_product_accumulate",
+          "shape": [TIER_QUERIES, 1 << 17, words], "halves_equal_one_call": True,
+          **results["xor_inner_product_accumulate"]})
+    del span, packed, sel, counts_lib
+
+    # K9: Mosaic's tiling repeat, at the probe's shape and at a [256, 128]
+    # source tiled 32 times (the v2 TPU kernel's selection repeat).
+    k9 = {}
+    for height, n, factor in ((1, 2, 2), (256, 128, 32)):
+        x = rand_words(height, n)
+        k9[height, n, factor] = measure(
+            f"repeat_tiles {height}x{n}x{factor}", lambda: ipk.repeat_tiles(x, factor),
+            lambda: ipk.repeat_tiles_plain(x, factor), 0,
+            4 * (height * n + height * n * factor))
+        k9[height, n, factor]["library_ms"] = cuda_time_ms(lambda: x.repeat(1, factor),
+                                                           reps=20)
+        k9[height, n, factor]["ptxas"] = ptxas_of(ptxas, "repeat_tiles_kernel")
+        emit({"phase": "kernel", "name": "repeat_tiles", "shape": [height, n],
+              "factor": factor, **k9[height, n, factor]})
+    results["repeat_tiles"] = k9[1, 2, 2]
+    probe = []
+    probe_launches = counted(lambda: probe.append(ipk.interpret_repeat_tiles(dev)),
+                             {"repeat_tiles": 1}, "probe")
+    if probe != [True]:
+        raise AssertionError("interpret_repeat_tiles: K9 does not tile like Mosaic")
+    emit({"phase": "probe", "interpret_repeat_tiles": True, "launches": probe_launches})
 
     # K8: one path-walk level (select-key AES, corrections, control), per
     # seed at the DCF's width (1,024 keys: 32 word columns) and at 65,536
@@ -918,10 +1337,11 @@ def main() -> int:
     r0, r1 = client.create_plain_requests(idx)
     keygen_s = time.perf_counter() - t0
     expected = {
-        "walk": {"walk_descend": 4, "xor_inner_product": 2},
-        "tail": {"expand_head": 2, "expand_tail": 2, "xor_inner_product": 2},
+        "walk": {"walk_descend": 4, "leaf_blocks": 2, "xor_inner_product": 2},
+        "tail": {"expand_head": 2, "expand_tail": 2, "leaf_blocks": 2,
+                 "xor_inner_product": 2},
         "level": {"expand_level": 2 * expand_levels, "value_hash": 2,
-                  "xor_inner_product": 2},
+                  "leaf_blocks": 2, "xor_inner_product": 2},
     }
     launches, first_s, servers = {}, {}, {}
 
@@ -1013,12 +1433,37 @@ def main() -> int:
               "kernel_device_ms": {k: results[k]["device_ms"] for k in mode_kernels},
               "queries_per_sec": qps[mode], "fastest": fastest})
 
+    # The main path with the v1 inner product: K7's counts and their parity.
+    db_v1 = DenseDpfPirDatabase(records, inner_product="v1")
+    db_v1.staged()
+    server = DenseDpfPirServer.create_plain(db_v1)
+    serve(server)  # warm-up
+    out = []
+    want = {k: n for k, n in expected[DEFAULT_EXPANSION].items()
+            if k != "xor_inner_product"}
+    launches["v1"] = counted(lambda: out.append(serve(server)),
+                             {**want, "xor_counts": 2}, "main path (v1)")
+    for a, b, i in zip(*out[0], idx):
+        if bytes(x ^ y for x, y in zip(a, b)) != records[i]:
+            raise AssertionError(f"main path (v1): record {i} does not reconstruct")
+    times = host_ms(lambda: serve(server), 16)
+    emit({"phase": "main_path_v1", "inner_product": "v1", "expansion": DEFAULT_EXPANSION,
+          "records": NUM_RECORDS, "record_bytes": RECORD_BYTES, "queries": NUM_QUERIES,
+          "reconstructed": NUM_QUERIES, "launches": launches["v1"],
+          "batch_ms": statistics.median(times), "batch_ms_all": times,
+          "queries_per_sec": NUM_QUERIES / statistics.median(times) * 1e3,
+          "device": smi_line})
+    del db_v1, server, servers, db
+
     # 6. The DPF and DCF evaluation paths.
     dcf_launches = dcf_phase(rng, dev)
     full = dpf_full_domain_phase(rng, dev)
     dpf_point_phase(rng, dev, full)
 
-    # 7. Every ported kernel, with its launches from the run of the mode
+    # 7. Dense PIR's serving tiers at BASELINE configs[2].
+    tier_counts = tiers_phase(rng, dev)
+
+    # 8. Every ported kernel, with its launches from the run of the mode
     # (or path) that launches it.
     rows = [
         ("expand_level", "level", "csrc/expand_planes.cu", "ops/expand_planes_pallas.py:134"),
@@ -1028,20 +1473,34 @@ def main() -> int:
         ("walk_descend", "walk", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:649"),
         ("expand_tail", "tail", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:392"),
         ("expand_head", "tail", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:453"),
+        ("xor_counts", "v1", "csrc/inner_product_v1.cu", "ops/inner_product_pallas.py:130"),
+        # No TPU kernel: the JAX package leaves plane layout in XLA here.
+        ("leaf_blocks", DEFAULT_EXPANSION, "csrc/leaf_blocks.cu",
+         "pir/dense_eval_planes.py:1632"),
+    ]
+    launches["probe"] = probe_launches
+    launches.update(tier_counts)
+    extra = [
+        # (row, kernel whose count it reads, launching run, source, TPU kernel)
+        ("xor_inner_product_accumulate", "xor_inner_product", "streaming",
+         "csrc/inner_product.cu", "ops/inner_product_pallas.py:502"),
+        ("repeat_tiles", "repeat_tiles", "probe", "csrc/repeat_tiles.cu",
+         "ops/inner_product_pallas.py:65"),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"distributed_point_functions_tpu_torch/{src}",
          "replaces": f"distributed_point_functions_tpu/{tpu}",
-         "launches": launches[mode][name],
+         "launches": launches[mode][counter],
          "max_abs_err": results[name]["err"],
          "ms": results[name]["ms"],
          "device_ms": results[name]["device_ms"],
          "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"],
          "bound_by": results[name]["bound_by"],
-         "library_ms": None}
-        for name, mode, src, tpu in rows
+         "library_ms": results[name].get("library_ms")}
+        for name, counter, mode, src, tpu in
+        [(n, n, m, src, tpu) for n, m, src, tpu in rows] + extra
     ] + [
         {"name": "path_level", "route": "cuda",
          "source": "distributed_point_functions_tpu_torch/csrc/path_level.cu",

@@ -22,9 +22,17 @@
 // at a time; each thread keeps 16 query accumulators for one word in
 // registers and applies `acc ^= db & mask` with the mask bit shifted out
 // of the staged selection word by constants. Blocks combine their partial
-// XORs into the output with atomicXor (zeroed first, on the same stream):
-// XOR commutes, so the result is exact in any order. The int8 tensor-core
-// redesign (exact counts through mma/wgmma) is a later step.
+// XORs into the output with atomicXor (zeroed first, on the same stream,
+// unless the caller accumulates): XOR commutes, so the result is exact in
+// any order. The int8 tensor-core redesign (exact counts through
+// mma/wgmma) is a later step.
+//
+// The accumulate entry (the JAX package's
+// `xor_inner_product_pallas2_accumulate`, inner_product_pallas.py:502) is
+// the same launch without the zeroing: it XORs one record span's product
+// into the caller's running result, for the streaming and chunked tiers.
+// A span may be a group range of a larger staging: bit row b of db starts
+// b_stride words after row 0.
 // `nvcc -Xptxas -v` (CUDA 12.8, sm_90a): 90 registers, no spills, 36,864
 // B shared memory.
 
@@ -43,7 +51,7 @@ constexpr int kThreads = kLanes * kRows;
 __global__ void __launch_bounds__(kThreads)
 xor_ip_kernel(const uint32_t* __restrict__ sel, const uint32_t* __restrict__ db,
               uint32_t* __restrict__ out, int nq, int g_total, int w_total,
-              int groups_per_block) {
+              int64_t b_stride, int groups_per_block) {
   __shared__ uint32_t db_s[32][kGs][kLanes];
   __shared__ uint32_t sel_s[kTq][kGs];
   const int lane = threadIdx.x % kLanes;
@@ -66,7 +74,7 @@ xor_ip_kernel(const uint32_t* __restrict__ sel, const uint32_t* __restrict__ db,
       const int g = g0 + gg;
       const int w = w0 + l;
       db_s[b][gg][l] = (g < g_end && w < w_total)
-                           ? db[(static_cast<int64_t>(b) * g_total + g) * w_total + w]
+                           ? db[b * b_stride + static_cast<int64_t>(g) * w_total + w]
                            : 0u;
     }
     for (int i = threadIdx.x; i < kTq * kGs; i += kThreads) {
@@ -110,15 +118,21 @@ xor_ip_kernel(const uint32_t* __restrict__ sel, const uint32_t* __restrict__ db,
 
 }  // namespace
 
-// out must hold nq * w_total words; it is zeroed here on `stream` first.
+// out must hold nq * w_total words. Unless `accumulate` is set it is zeroed
+// here on `stream` first; with it, the product is XORed into out as it is.
+// sel holds at least nq rows of g_total words; db's bit row b starts at
+// db + b * b_stride.
 extern "C" int dpf_xor_inner_product(const uint32_t* sel, const uint32_t* db,
                                      uint32_t* out, long long nq,
                                      long long g_total, long long w_total,
+                                     long long b_stride, int accumulate,
                                      int num_sms, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(nq * w_total) * sizeof(uint32_t), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!accumulate) {
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(nq * w_total) * sizeof(uint32_t), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const long long w_tiles = (w_total + kLanes - 1) / kLanes;
   const long long q_tiles = (nq + kTq - 1) / kTq;
   // Enough group spans for about four blocks per SM.
@@ -135,6 +149,7 @@ extern "C" int dpf_xor_inner_product(const uint32_t* sel, const uint32_t* db,
   xor_ip_kernel<<<grid, kThreads, 0, st>>>(sel, db, out, static_cast<int>(nq),
                                            static_cast<int>(g_total),
                                            static_cast<int>(w_total),
+                                           static_cast<int64_t>(b_stride),
                                            static_cast<int>(per));
   return static_cast<int>(cudaGetLastError());
 }

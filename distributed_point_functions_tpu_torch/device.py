@@ -26,3 +26,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use cuda or cpu")
     return dev
+
+
+def device_memory_bytes():
+    """Total memory of the current CUDA card in bytes
+    (`torch.cuda.get_device_properties(...).total_memory`), or None
+    without one (the CPU). Never raises."""
+    if not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.get_device_properties(torch.cuda.current_device()).total_memory)

@@ -32,7 +32,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 
-SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu", "path_level.cu")
+SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu",
+           "inner_product_v1.cu", "path_level.cu", "repeat_tiles.cu",
+           "leaf_blocks.cu")
 LIB_NAME = "libdpf_kernels.so"
 HEADERS = ("aes_generated.cuh", "expand_body.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -43,6 +45,7 @@ NVCC_FLAGS = ARCH + (
 LAUNCHES = {
     "expand_level": 0, "value_hash": 0, "xor_inner_product": 0,
     "walk_descend": 0, "expand_head": 0, "expand_tail": 0, "path_level": 0,
+    "xor_counts": 0, "repeat_tiles": 0, "leaf_blocks": 0,
 }
 
 _P = ctypes.c_void_p
@@ -50,10 +53,13 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "dpf_expand_level": [_P] * 7 + [_I64, _I64, _P],
     "dpf_value_hash": [_P] * 4 + [_I64, _I64, _P],
-    "dpf_xor_inner_product": [_P] * 3 + [_I64, _I64, _I64, ctypes.c_int, _P],
+    "dpf_xor_inner_product": [_P] * 3 + [_I64] * 4 + [ctypes.c_int] * 2 + [_P],
+    "dpf_xor_counts": [_P] * 3 + [_I64] * 3 + [ctypes.c_int, _P],
+    "dpf_repeat_tiles": [_P] * 2 + [_I64] * 3 + [_P],
     "dpf_walk_descend": [_P] * 8 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
     "dpf_expand_levels": [_P] * 12 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
     "dpf_path_level": [_P] * 8 + [_I64, _I64, _P],
+    "dpf_leaf_blocks": [_P] * 3 + [_I64] * 3 + [_P],
 }
 
 _lock = threading.Lock()

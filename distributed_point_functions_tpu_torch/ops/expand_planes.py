@@ -25,12 +25,17 @@ The counterpart of the JAX package's `ops/expand_planes_pallas.py`.
   then the seed correction, the control bit out of plane 0, and the
   direction correction of the path's branch. Replaces `_path_kernel`
   (`ops/expand_planes_pallas.py:946`).
+* `leaf_blocks` -- leaves plane layout for dense PIR's selection blocks:
+  the bit transpose of the leaf values, the exit gather into block order
+  and the key-major transpose in one pass (`csrc/leaf_blocks.cu`). It has
+  no TPU kernel; the JAX package does the same in XLA. One pass keeps the
+  leaf values and the selections the only selection-sized buffers alive.
 
 For a CPU tensor each wrapper runs its plain PyTorch version (the
 `*_plain` functions, built on `aes_bitslice.py`: K4-K6 are K2's level and
 K3's hash composed); for a CUDA tensor it launches the hand-written kernel
-(`csrc/expand_planes.cu`, `csrc/expand_fused.cu`, `csrc/path_level.cu`)
-or raises. There is no
+(`csrc/expand_planes.cu`, `csrc/expand_fused.cu`, `csrc/path_level.cu`,
+`csrc/leaf_blocks.cu`) or raises. There is no
 fallback from one to the other.
 
 Bound on the H100: 32-bit integer logic. A child of one 32-lane word
@@ -58,6 +63,7 @@ from .aes_bitslice import (
     aes_rounds_planes,
     aes_rounds_select_planes,
     mmo_hash_planes,
+    planes_to_limbs,
     sigma_planes,
 )
 
@@ -453,3 +459,47 @@ def path_level(state, ctrl, sel, cwp, cwl, cwr):
     cuda_lib.LAUNCHES["path_level"] += 1
     cuda_lib.check(err, "path_level")
     return out, out_ctrl
+
+
+def leaf_blocks_plain(values, node_block, num_blocks: int):
+    """Plain version of `leaf_blocks`: the limb transpose, then a scatter
+    of each kept node's key-major rows into its block."""
+    g = values.shape[-1]
+    nodes = node_block.shape[0]
+    nkp = 32 * g // nodes
+    limbs = planes_to_limbs(values).reshape(nodes, nkp, 4)
+    keep = (node_block >= 0) & (node_block < num_blocks)
+    out = torch.zeros((nkp, num_blocks, 4), dtype=torch.int32, device=values.device)
+    out[:, node_block[keep].long()] = limbs[keep].transpose(0, 1)
+    return out
+
+
+def leaf_blocks(values, node_block, num_blocks: int):
+    """Selection blocks of an expansion's leaf values.
+
+    values: int32[16, 8, G] leaf planes, node-major (G = nodes * KG);
+    node_block: int32[nodes], the natural block that node n's leaves hold
+    (a node whose block is negative or not below `num_blocks` is dropped);
+    a block that no node holds selects nothing. Returns int32[32 KG, num_blocks, 4]
+    key-major."""
+    if values.ndim != 3 or tuple(values.shape[:2]) != (16, 8):
+        raise ValueError(f"values must be [16, 8, G], got {tuple(values.shape)}")
+    g = values.shape[-1]
+    nodes = node_block.shape[0] if node_block.ndim == 1 else 0
+    if nodes <= 0 or g % nodes:
+        raise ValueError(f"node_block of {nodes} nodes must divide the width {g}")
+    dev = values.device
+    _check_words(values, "values", (16, 8, g), dev)
+    _check_words(node_block, "node_block", (nodes,), dev)
+    if dev.type == "cpu":
+        return leaf_blocks_plain(values, node_block, num_blocks)
+    kg = g // nodes
+    out = torch.zeros((32 * kg, num_blocks, 4), dtype=torch.int32, device=dev)
+    lib = cuda_lib.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dpf_leaf_blocks(values.data_ptr(), node_block.data_ptr(),
+                                  out.data_ptr(), g, kg, num_blocks, stream)
+    cuda_lib.LAUNCHES["leaf_blocks"] += 1
+    cuda_lib.check(err, "leaf_blocks")
+    return out

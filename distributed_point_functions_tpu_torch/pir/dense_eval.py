@@ -9,6 +9,9 @@ covering subtree (`dense_eval_planes.py`).
 
 The port of the JAX package's `pir/dense_eval.py` staging half; the host
 walk always uses the numpy MMO oracle (the port has no native library).
+`chunked_pir_inner_products` is the chunked serving tier: one chunk root
+at a time walked down its path bits (K8), its subtree expanded and XORed
+into the result against its span of the database (K1's accumulate entry).
 """
 
 from __future__ import annotations
@@ -16,12 +19,22 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from .. import keys as fixed_keys
 from ..device import resolve_device
 from ..dpf import DpfKey
 from ..ops import aes
+from ..ops.expand_planes import leaf_blocks, path_level
+from ..ops.inner_product_kernels import xor_inner_product_accumulate
 from ..ops.words import to_tensors
+from .dense_eval_planes import (
+    DEFAULT_EXPANSION,
+    exit_node_blocks,
+    expand_planned,
+    expansion_plan,
+    pack_key_batch,
+)
 
 _CLEAR_LSB = np.array(
     [0xFFFFFFFE, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF], dtype=np.uint32
@@ -97,3 +110,66 @@ def stage_keys(
     dev = resolve_device(device)
     return tuple(to_tensors(stage_keys_host(keys, host_walk_levels), dev))
 
+
+
+def chunked_pir_inner_products(
+    seeds0, control0, cw_seeds, cw_left, cw_right, last_vc, db_perm, *,
+    chunk_bits: int, chunk_expand_levels: int, num_chunks: int,
+    mode: str = DEFAULT_EXPANSION,
+) -> torch.Tensor:
+    """Dense-PIR inner products one chunk of 2^chunk_expand_levels blocks
+    at a time, so only one chunk's selections are ever live (the JAX
+    package's `chunked_pir_inner_products`).
+
+    For chunk c: walk the chunk root's path, bit j of c MSB first, through
+    K8 (`path_level`, every key on the same branch, so its select words
+    are all-ones or all-zeros, with each key's own corrections); expand its
+    subtree `chunk_expand_levels` levels in `mode`
+    (`dense_eval_planes.expand_planned`) and write its leaves out as
+    selection blocks in natural order (`leaf_blocks`); XOR them into the
+    result against the chunk's records
+    (K1's accumulate entry on a group span of the staging). The staged
+    keys sit at the root of the covering subtree with chunk_bits +
+    chunk_expand_levels correction levels. db_perm: int32[32, G, W], the
+    natural-order bit-major staging with G >= num_chunks * 2^cel * 4
+    groups (`DenseDpfPirDatabase.chunked_staging`). Returns
+    int32[num_keys, W], equal to the materialized tier's."""
+    cel = chunk_expand_levels
+    levels = chunk_bits + cel
+    if cw_seeds.shape[0] != levels:
+        raise ValueError(
+            f"keys have {cw_seeds.shape[0]} correction levels; the plan "
+            f"needs {chunk_bits} path bits + {cel} expansion levels"
+        )
+    span = 4 << cel  # selection words (groups of 32 records) per chunk
+    if db_perm.shape[1] < num_chunks * span:
+        raise ValueError(
+            f"db_perm holds {db_perm.shape[1]} groups, the chunks need "
+            f"{num_chunks * span}"
+        )
+    nk = seeds0.shape[0]
+    state, ctrl, cwp, cwl, cwr, vc = pack_key_batch(
+        seeds0, control0, cw_seeds, cw_left, cw_right, last_vc, levels)
+    kg = ctrl.shape[0]
+    dev = state.device
+    plan = expansion_plan(mode, kg, cel)
+    node_block = torch.from_numpy(
+        exit_node_blocks(cel, *plan, mode == "walk", 1 << cel)).to(dev)
+    branch = (torch.zeros(kg, dtype=torch.int32, device=dev),
+              torch.full((kg,), -1, dtype=torch.int32, device=dev))
+    acc = torch.zeros((32 * kg, db_perm.shape[2]), dtype=torch.int32, device=dev)
+    for c in range(num_chunks):
+        s, t = state, ctrl
+        for j in range(chunk_bits):
+            bit = (c >> (chunk_bits - 1 - j)) & 1
+            s, t = path_level(s, t, branch[bit], cwp[j], cwl[j], cwr[j])
+        values = expand_planned(
+            s, t, cwp[chunk_bits:], cwl[chunk_bits:], cwr[chunk_bits:], vc,
+            mode=mode, plan=plan, node_lanes=kg)[0]
+        # Free each buffer once used: a chunk's leaf values and its
+        # selections are what the capacity model counts.
+        sel = leaf_blocks(values, node_block, 1 << cel)
+        del values
+        xor_inner_product_accumulate(acc, db_perm[:, c * span:(c + 1) * span], sel)
+        del sel
+    return acc[:nk]

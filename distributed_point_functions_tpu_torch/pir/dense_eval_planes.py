@@ -3,9 +3,9 @@
 The port of the JAX package's `pir/dense_eval_planes.py`
 (`_evaluate_selection_blocks_planes_jit` and the split rules): transpose
 the key batch's subtree roots into bit-plane layout once, expand
-`expand_levels` levels in up to three phases, hash the leaves, and
-transpose out once. `mode` picks the kernels, as the JAX package's
-`DPF_TPU_LEVEL_KERNEL` does on a TPU (here a keyword, never an
+`expand_levels` levels in up to three phases, hash the leaves, and leave
+plane layout once (`leaf_blocks`). `mode` picks the kernels, as the JAX
+package's `DPF_TPU_LEVEL_KERNEL` does on a TPU (here a keyword, never an
 environment variable, and without self-checks or a fallback: a failing
 kernel raises):
 
@@ -29,8 +29,10 @@ one key's corrections at KG = 1).
 Each phase leaves its leaves in its own order: doubling phases append
 [all-left; all-right] per level (per tile for K5), walk phases emit
 natural offsets. The exit gather is the argsort of the composed order
-(`exit_permutation`), so the output is bit-identical in every mode and
-split, and to the JAX package's `evaluate_selection_blocks`.
+(`exit_permutation`); `ops.expand_planes.leaf_blocks` applies it while it
+writes the leaf values out as key-major selection blocks, so the output
+is bit-identical in every mode and split, and to the JAX package's
+`evaluate_selection_blocks`.
 
 Lane layout: node-major/key-minor (lane = node * nk + key) with nk padded
 to a multiple of 32, so each packed word holds 32 keys of one node and
@@ -46,11 +48,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.aes_bitslice import limbs_to_planes, pack_select_bits, planes_to_limbs
+from ..ops.aes_bitslice import limbs_to_planes, pack_select_bits
 from ..ops.expand_planes import (
     expand_head,
     expand_level,
     expand_tail,
+    leaf_blocks,
     tail_node_permutation,
     value_hash,
     walk_descend,
@@ -177,6 +180,59 @@ def exit_permutation(expand_levels: int, head: int, tail: int,
     return np.argsort(order)[:num_blocks]
 
 
+def node_blocks(gather: np.ndarray, nodes: int) -> np.ndarray:
+    """The inverse of an exit gather over `nodes` leaf positions: the
+    block each position holds (gather[block] = position), -1 where none
+    (`ops.expand_planes.leaf_blocks`'s `node_block`)."""
+    out = np.full(nodes, -1, dtype=np.int32)
+    out[gather] = np.arange(len(gather), dtype=np.int32)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def exit_node_blocks(expand_levels: int, head: int, tail: int, tile_nodes: int,
+                     walk: bool, num_blocks: int) -> np.ndarray:
+    """`node_blocks` of a plan's `exit_permutation`."""
+    return node_blocks(
+        exit_permutation(expand_levels, head, tail, tile_nodes, walk, num_blocks),
+        1 << expand_levels)
+
+
+def pack_key_batch(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
+                   levels: int):
+    """A staged key batch in plane layout, the key count zero-padded to a
+    multiple of 32: (state int32[16, 8, KG], ctrl int32[KG], cwp
+    int32[levels, 16, 8, KG], cwl / cwr int32[levels, KG], vc
+    int32[16, 8, KG]) from the first `levels` correction levels. Padded keys
+    expand to leaves that callers cut off."""
+    nk = seeds0.shape[0]
+    pad_keys = (-nk) % 32
+    if pad_keys:
+        seeds0 = F.pad(seeds0, (0, 0, 0, pad_keys))
+        control0 = F.pad(control0, (0, pad_keys))
+        cw_seeds = F.pad(cw_seeds, (0, 0, 0, pad_keys))
+        cw_left = F.pad(cw_left, (0, pad_keys))
+        cw_right = F.pad(cw_right, (0, pad_keys))
+        last_vc = F.pad(last_vc, (0, 0, 0, pad_keys))
+    nkp = nk + pad_keys
+    kg = nkp // 32
+
+    # Enter plane space once.
+    state = limbs_to_planes(seeds0.contiguous())  # [16, 8, KG]
+    ctrl = pack_key_bits(control0)  # [KG]
+
+    # Pack every level's corrections in one pass: key k of level l is
+    # block l * nkp + k, i.e. word l * KG + k / 32 of the packing; then one
+    # [16, 8, KG] row per level. Per-level packing would cost a few
+    # hundred small device ops per level on the host's dispatch path.
+    cwp = pack_key_planes(cw_seeds[:levels].reshape(-1, 4).contiguous())
+    cwp = cwp.reshape(16, 8, levels, kg).permute(2, 0, 1, 3).contiguous()
+    cwl = pack_key_bits(cw_left[:levels].reshape(-1)).reshape(levels, kg)
+    cwr = pack_key_bits(cw_right[:levels].reshape(-1)).reshape(levels, kg)
+    vc = pack_key_planes(last_vc.contiguous())
+    return state, ctrl, cwp, cwl, cwr, vc
+
+
 def evaluate_selection_blocks_planes(
     seeds0: torch.Tensor,
     control0: torch.Tensor,
@@ -216,47 +272,21 @@ def evaluate_planned(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
     tile_nodes) split `plan` that `expansion_plan` gives for `mode` and
     the keys' padded key-group count."""
     nk = seeds0.shape[0]
-    pad_keys = (-nk) % 32
-    if pad_keys:
-        seeds0 = F.pad(seeds0, (0, 0, 0, pad_keys))
-        control0 = F.pad(control0, (0, pad_keys))
-        cw_seeds = F.pad(cw_seeds, (0, 0, 0, pad_keys))
-        cw_left = F.pad(cw_left, (0, pad_keys))
-        cw_right = F.pad(cw_right, (0, pad_keys))
-        last_vc = F.pad(last_vc, (0, 0, 0, pad_keys))
-    nkp = nk + pad_keys
-    kg = nkp // 32
     levels = expand_levels
+    state, ctrl, cwp, cwl, cwr, vc = pack_key_batch(
+        seeds0, control0, cw_seeds, cw_left, cw_right, last_vc, levels)
+    kg = ctrl.shape[0]
 
-    # Enter plane space once.
-    state = limbs_to_planes(seeds0.contiguous())  # [16, 8, KG]
-    ctrl = pack_key_bits(control0)  # [KG]
-
-    # Pack every level's corrections in one pass: key k of level l is
-    # block l * nkp + k, i.e. word l * KG + k / 32 of the packing; then one
-    # [16, 8, KG] row per level. Per-level packing would cost a few
-    # hundred small device ops per level on the host's dispatch path.
-    cwp = pack_key_planes(cw_seeds[:levels].reshape(-1, 4).contiguous())
-    cwp = cwp.reshape(16, 8, levels, kg).permute(2, 0, 1, 3).contiguous()
-    cwl = pack_key_bits(cw_left[:levels].reshape(-1)).reshape(levels, kg)
-    cwr = pack_key_bits(cw_right[:levels].reshape(-1)).reshape(levels, kg)
-    vc = pack_key_planes(last_vc.contiguous())
     # Leaf value blocks: output PRG + XOR value correction (party
     # negation is the identity for XOR shares).
-    values, _ = expand_planned(state, ctrl, cwp, cwl, cwr, vc, mode=mode,
-                               plan=plan, node_lanes=kg)
-    head, tail, tile_nodes = plan
+    values = expand_planned(state, ctrl, cwp, cwl, cwr, vc, mode=mode,
+                            plan=plan, node_lanes=kg)[0]
 
-    # Leave plane space once: [w * nkp, 4] node-major -> [nkp, w, 4].
-    w = 1 << levels
-    out = planes_to_limbs(values).reshape(w, nkp, 4).transpose(0, 1)
-    perm = exit_permutation(levels, head, tail, tile_nodes, mode == "walk",
-                            num_blocks)
-    out = out[:, torch.from_numpy(perm).to(out.device), :]
-    if out.shape[1] < num_blocks:
-        # Blocks beyond the tree's capacity can only select zero rows.
-        out = F.pad(out, (0, 0, 0, num_blocks - out.shape[1]))
-    return out[:nk].contiguous()
+    # Leave plane space once, into block order: int32[nkp, num_blocks, 4]
+    # (blocks beyond the tree's capacity select nothing).
+    node_block = exit_node_blocks(levels, *plan, mode == "walk", num_blocks)
+    return leaf_blocks(values, torch.from_numpy(node_block).to(values.device),
+                       num_blocks)[:nk]
 
 
 def expand_planned(state, ctrl, cwp, cwl, cwr, vc, *, mode: str, plan: tuple,

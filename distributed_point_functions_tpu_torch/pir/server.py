@@ -1,36 +1,71 @@
 """PIR servers: the plain role and the dense server.
 
 The port of the JAX package's `pir/server.py` for the plain role on one
-device, materialized tier. `DenseDpfPirServer` binds the role to the
-dense database: a request's DPF keys are staged with the shared all-zeros
-prefix walked on the host (`dense_eval.stage_keys`), the covering
-subtree is expanded on the device (`dense_eval_planes.
-evaluate_selection_blocks_planes`) in the server's `expansion` mode --
-"walk" (K4 head and tail), "tail" (K6 head, K5 tail) or "level" (K2 per
-level, K3 at the leaves) -- and the selections go through the XOR inner
-product (K1) against the database's bit-major staging.
+device. `DenseDpfPirServer` binds the role to the dense database: a
+request's DPF keys are staged with the shared all-zeros prefix walked on
+the host (`dense_eval.stage_keys`), and the planner (`planner.py`) picks
+the tier that serves the batch within the selection-memory budget of the
+capacity model (`capacity/model.py`):
 
-A batch whose selections the card cannot hold raises
-`torch.cuda.OutOfMemoryError`; the streaming and chunked tiers that
-bound selection memory come with the planner. The Leader and Helper roles
-come with `prng.py` and `crypto/`.
+* materialized -- the covering subtree is expanded on the device
+  (`dense_eval_planes.evaluate_selection_blocks_planes`) and the whole
+  selection matrix goes through the database's inner product (K1, or K7
+  for a v1 database);
+* streaming -- the expansion down to a cut, then per chunk the tail
+  expansion and K1's accumulate entry against the database's streaming
+  staging (`dense_eval_planes_v2.streaming_pir_inner_products`);
+* chunked -- per chunk a K8 walk to its root, the expansion and K1's
+  accumulate entry against a span of the natural staging
+  (`dense_eval.chunked_pir_inner_products`).
+
+Every tier expands in the server's `expansion` mode -- "walk" (K4 head and
+tail), "tail" (K6 head, K5 tail) or "level" (K2 per level, K3 at the
+leaves) -- and every tier returns the same bytes. `set_tier_floor` forces
+every server of the process to a tier or a cheaper one. A batch that
+still outgrows the card raises `torch.cuda.OutOfMemoryError`: there is no
+demotion after an out-of-memory error, no fallback. The Leader and Helper
+roles come with `prng.py` and `crypto/`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import List, Optional
 
 from ..device import resolve_device
 from ..dpf import DistributedPointFunction, DpfParameters
+from ..ops.words import to_numpy
 from ..value_types import XorType
 from . import messages
-from .database import DenseDpfPirDatabase
-from .dense_eval import stage_keys
+from .database import DenseDpfPirDatabase, words_to_record_bytes
+from .dense_eval import chunked_pir_inner_products, stage_keys
 from .dense_eval_planes import (
     DEFAULT_EXPANSION,
     EXPANSION_MODES,
     evaluate_selection_blocks_planes,
 )
+from .dense_eval_planes_v2 import streaming_pir_inner_products
+from .planner import CHUNK_GRANULE_LEVELS, TIERS, ServingPlan, plan_dense_serving
+
+# The process-wide tier floor: index into TIERS of the most expensive tier
+# any dense-PIR plan may take (0: unconstrained).
+_TIER_FLOOR = 0
+
+
+def set_tier_floor(mode: Optional[str]) -> None:
+    """Force every dense-PIR plan in this process to `mode` or a cheaper
+    tier ("materialized", "streaming" or "chunked"); None or
+    "materialized" clears the constraint."""
+    global _TIER_FLOOR
+    _TIER_FLOOR = 0 if mode is None else TIERS.index(mode)
+
+
+def clear_tier_floor() -> None:
+    set_tier_floor(None)
+
+
+def tier_floor() -> str:
+    return TIERS[_TIER_FLOOR]
 
 
 class DpfPirServer:
@@ -133,6 +168,36 @@ class DenseDpfPirServer(DpfPirServer):
                     f"key has {len(key.correction_words)} correction words, "
                     f"expected {expected_cw}"
                 )
+        plan = self._plan_serving(len(keys))
+        return messages.PirResponse(
+            dpf_pir_response=messages.DpfPirResponse(
+                masked_response=self._execute_plan(plan, keys)
+            )
+        )
+
+    def _plan_serving(self, num_keys: int) -> ServingPlan:
+        """The planner's tier for a batch of `num_keys` keys, at or below
+        the process-wide tier floor."""
+        plan = plan_dense_serving(
+            num_keys=num_keys,
+            num_blocks=self._num_blocks,
+            expand_levels=self._expand_levels,
+        )
+        floor = _TIER_FLOOR
+        if floor and TIERS.index(plan.mode) < floor:
+            plan = plan_dense_serving(
+                num_keys=num_keys,
+                num_blocks=self._num_blocks,
+                expand_levels=self._expand_levels,
+                force_mode=TIERS[floor],
+            )
+        return plan
+
+    def _execute_plan(self, plan: ServingPlan, keys) -> List[bytes]:
+        if plan.mode == "streaming":
+            return self._inner_products_streaming(plan, keys)
+        if plan.mode == "chunked":
+            return self._inner_products_chunked(plan, keys)
         staged = stage_keys(keys, self._walk_levels, device=self._device)
         selections = evaluate_selection_blocks_planes(
             *staged,
@@ -140,8 +205,45 @@ class DenseDpfPirServer(DpfPirServer):
             num_blocks=self._num_blocks,
             mode=self._expansion,
         )
-        return messages.PirResponse(
-            dpf_pir_response=messages.DpfPirResponse(
-                masked_response=self._database.inner_product_with(selections)
-            )
+        return self._database.inner_product_with(selections)
+
+    def _inner_products_streaming(self, plan: ServingPlan, keys) -> List[bytes]:
+        """The streaming tier: tail expansion and K1's accumulate entry per
+        chunk, no materialized selection matrix."""
+        staged = stage_keys(keys, self._walk_levels, device=self._device)
+        out = streaming_pir_inner_products(
+            *staged,
+            self._database.streaming_chunks(plan.cut_levels),
+            cut_levels=plan.cut_levels,
+            chunk_levels=plan.chunk_levels,
+            mode=self._expansion,
         )
+        return words_to_record_bytes(
+            to_numpy(out), len(keys), self._database.max_value_size)
+
+    def _chunked_database(self):
+        """(padded block count, staging) of the chunked tier: the block
+        count padded to a multiple of 2^min(expand_levels, 10) blocks, so
+        that the staging does not depend on the batch size
+        (`DenseDpfPirDatabase.chunked_staging` builds it once)."""
+        granule = 1 << min(self._expand_levels, CHUNK_GRANULE_LEVELS)
+        padded_blocks = -(-self._num_blocks // granule) * granule
+        return padded_blocks, self._database.chunked_staging(granule)
+
+    def _inner_products_chunked(self, plan: ServingPlan, keys) -> List[bytes]:
+        """The chunked tier: one chunk's selections live at a time. The
+        chunk count follows from the granule-padded block count (the
+        plan's num_chunks is its lower bound)."""
+        padded_blocks, db = self._chunked_database()
+        cel = plan.chunk_levels
+        staged = stage_keys(keys, self._walk_levels, device=self._device)
+        out = chunked_pir_inner_products(
+            *staged,
+            db,
+            chunk_bits=self._expand_levels - cel,
+            chunk_expand_levels=cel,
+            num_chunks=padded_blocks >> cel,
+            mode=self._expansion,
+        )
+        return words_to_record_bytes(
+            to_numpy(out), len(keys), self._database.max_value_size)

@@ -1,0 +1,116 @@
+"""K7, K9, K1's accumulate entry, `leaf_blocks` and the serving tiers on
+the card, against their plain versions on the host.
+
+Marked `cuda`; each test skips without a CUDA device. The shapes are small
+and ragged. This file imports no JAX, so on a machine with a card and
+without JAX it runs alone:
+
+    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_tiers.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_point_functions_tpu_torch.capacity.model import (
+    CapacityModel,
+    set_default_capacity_model,
+)
+from distributed_point_functions_tpu_torch.ops import cuda_lib
+from distributed_point_functions_tpu_torch.ops import expand_planes as ep
+from distributed_point_functions_tpu_torch.ops import inner_product_kernels as ipk
+from distributed_point_functions_tpu_torch.ops.inner_product import xor_counts_plain
+from distributed_point_functions_tpu_torch.ops.words import to_tensor
+from distributed_point_functions_tpu_torch.pir import (
+    DenseDpfPirClient,
+    DenseDpfPirDatabase,
+    DenseDpfPirServer,
+)
+from distributed_point_functions_tpu_torch.pir import server as server_mod
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _words(rng, shape, device):
+    return to_tensor(rng.integers(0, 1 << 32, shape, dtype=np.uint32), device)
+
+
+@pytest.mark.parametrize("nq,g,w", [(12, 8, 1), (33, 200, 8), (8, 4096, 64)])
+def test_xor_counts_matches_plain(dev, nq, g, w):
+    rng = np.random.default_rng(g)
+    db, packed = _words(rng, (32, g, w), dev), _words(rng, (nq, g), dev)
+    before = cuda_lib.LAUNCHES["xor_counts"]
+    got = ipk.xor_counts(db, packed)
+    assert cuda_lib.LAUNCHES["xor_counts"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, xor_counts_plain(db, packed))
+
+
+def test_accumulate_xors_in_place_without_zeroing(dev):
+    rng = np.random.default_rng(3)
+    db, sel = _words(rng, (32, 256, 5), dev), _words(rng, (20, 64, 4), dev)
+    acc0 = _words(rng, (20, 5), dev)
+    acc = acc0.clone()
+    # Two group spans of one staging, each a strided view.
+    for h in (0, 1):
+        ipk.xor_inner_product_accumulate(acc, db[:, 128 * h:128 * (h + 1)],
+                                         sel[:, 32 * h:32 * (h + 1)])
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc0 ^ ipk.xor_inner_product_staged(db, sel))
+    assert torch.equal(acc.cpu(), acc0.cpu() ^ ipk.xor_inner_product_staged(db.cpu(), sel.cpu()))
+
+
+@pytest.mark.parametrize("rows,n,factor", [(1, 2, 2), (3, 5, 7), (256, 128, 32)])
+def test_repeat_tiles_matches_plain(dev, rows, n, factor):
+    x = _words(np.random.default_rng(n), (rows, n), dev)
+    assert torch.equal(ipk.repeat_tiles(x, factor), ipk.repeat_tiles_plain(x, factor))
+    assert ipk.interpret_repeat_tiles(dev) is True
+
+
+@pytest.mark.parametrize("kg,nodes,num_blocks", [(1, 2, 2), (3, 16, 11), (32, 64, 64),
+                                                  (4, 8, 12)])
+def test_leaf_blocks_matches_plain(dev, kg, nodes, num_blocks):
+    rng = np.random.default_rng(nodes)
+    values = _words(rng, (16, 8, kg * nodes), dev)
+    node_block = np.full(nodes, -1, dtype=np.int32)
+    kept = min(nodes, num_blocks)
+    node_block[rng.permutation(nodes)[:kept]] = np.arange(kept, dtype=np.int32)
+    node_block = torch.from_numpy(node_block).to(dev)
+    before = cuda_lib.LAUNCHES["leaf_blocks"]
+    got = ep.leaf_blocks(values, node_block, num_blocks)
+    assert cuda_lib.LAUNCHES["leaf_blocks"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ep.leaf_blocks_plain(values, node_block, num_blocks))
+    assert torch.equal(got.cpu(), ep.leaf_blocks(values.cpu(), node_block.cpu(), num_blocks))
+
+
+@pytest.mark.parametrize("tier", ["streaming", "chunked"])
+def test_tiers_on_the_card_match_the_host(dev, tier):
+    rng = np.random.default_rng(9)
+    records = [rng.bytes(20) for _ in range(3000)]
+    idx = [int(i) for i in rng.integers(0, len(records), 40)]
+    reqs = DenseDpfPirClient.create(len(records)).create_plain_requests(idx)
+    previous = set_default_capacity_model(CapacityModel(selection_budget=4096))
+    server_mod.set_tier_floor(tier if tier == "chunked" else None)
+    try:
+        shares = {}
+        for device in (dev, "cpu"):
+            server = DenseDpfPirServer.create_plain(
+                DenseDpfPirDatabase(records, device=device), device=device)
+            assert server._plan_serving(len(idx)).mode == tier
+            shares[str(device)] = [
+                server.handle_plain_request(r).dpf_pir_response.masked_response
+                for r in reqs]
+    finally:
+        set_default_capacity_model(previous)
+        server_mod.clear_tier_floor()
+    assert shares[str(dev)] == shares["cpu"]
+    for a, b, i in zip(*shares["cpu"], idx):
+        assert bytes(x ^ y for x, y in zip(a, b)) == records[i]

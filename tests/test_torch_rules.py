@@ -146,6 +146,7 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     assert cuda_lib.LAUNCHES == {
         "expand_level": 0, "value_hash": 0, "xor_inner_product": 0,
         "walk_descend": 0, "expand_head": 0, "expand_tail": 0, "path_level": 0,
+        "xor_counts": 0, "repeat_tiles": 0, "leaf_blocks": 0,
     }
 
 
