@@ -91,7 +91,19 @@ non-zero before printing a result. Phases, one JSON line each:
      `torch._int_mm` and `torch.mm` in bf16 with float32 out on the
      unpacked 0/1 operands (`library_ms` the faster; the unpacking
      apart), whose counts must agree and equal K7's, and whose parity
-     must equal K1's; K9's `library_ms` is `x.repeat(1, factor)`;
+     must equal K1's; K9's `library_ms` is `x.repeat(1, factor)`. K1, K7
+     and the accumulate entry are one count product on the tensor cores'
+     single-bit path: their bound is the larger of their bytes and their
+     operations at the single-bit rate (`B1_OPS_PER_S`), and each line
+     gives `bound_share` (bound over device time), the int8 rate it
+     reached (`int8_ops_per_s`) and its share of the int8 product's time
+     (`int8_bound_ms`, 0.278 ms at both shapes; `int8_bound_share`);
+   - `count_product_edges`: K1, K7 and the accumulate entry at ragged
+     shapes (every nq in {1, 5, 12, 33, 136, 1,024}, G in {1, 7, 136,
+     200, 4,096}, W in {1, 5, 8, 33, 64}), all ones (counts of 32G), no
+     selection, a zero database, one set bit at value bit 0 or 31 of the
+     first and the last record, and two strided group spans accumulated
+     into non-zero results, each `torch.equal` to the plain versions;
    - `kernel` lines at the tiers' shapes (configs[2], 32 word columns of
      keys): K4's head and tail for the materialized tier's 15 levels and
      for one streaming or chunked chunk's 10 levels from one node's 32
@@ -155,9 +167,16 @@ TIER_BUDGET = 64 << 20
 # The chunk levels of both 64 MiB plans (the tier phase checks its plans
 # against it): the kernel lines at the tiers' shapes use it.
 TIER_CHUNK_LEVELS = 10
-# int8 tensor-core rate of an H100 SXM (dense, at 700 W): the bound of a
-# count product of 0/1 operands (K7).
+# int8 tensor-core rate of an H100 SXM (dense, at 700 W): the rate of a
+# count product of 0/1 operands as int8 (K1, its accumulate entry, K7).
 INT8_OPS_PER_S = 1.979e15
+# The single-bit tensor-core rate (an AND and a count per bit pair), the
+# count product's bound. NVIDIA publishes none for Hopper;
+# `tools/torch_b1_mma_probe.py` measured it on an H100 80GB HBM3 at 700 W:
+# `wgmma.m64n256k256.b1` 1.557e16-1.572e16 (its int8 `wgmma` control
+# 1.961e15, 0.99 of the published peak), `mma.sync.m16n8k256.b1`
+# 1.028e16. The faster form, the one the kernel issues, sets the bound.
+B1_OPS_PER_S = 1.572e16
 # HBM rate of the card (bytes/s), by product name; INT32 logic rate is
 # reckoned from the SM count and the max SM clock nvidia-smi reports.
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12}
@@ -744,6 +763,35 @@ def unpack_operands(db_perm, packed):
     return sel.reshape(nq, -1), bits.reshape(rows.shape[0], -1)
 
 
+def count_product_edges(dev) -> dict:
+    """K1, its accumulate entry and K7 at the cases of
+    `ops/count_product_cases.py` (the card's tests run the same): ragged
+    shapes (query, group and word counts off the kernel's tiles), the
+    extremes (all ones: counts of 32G; no selection; a zero database; one
+    set bit at value bit 0 or 31 of the first or last record), and two
+    strided group spans accumulated into non-zero results, each
+    `torch.equal` to the plain versions. Raises on any difference; returns
+    the phase's line."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.ops import count_product_cases as cases
+
+    for shape in cases.EDGE_SHAPES:
+        cases.check_shape(*shape, dev)
+    for shape in cases.EXTREME_SHAPES:
+        cases.check_extremes(*shape, dev)
+    for bit in (0, 31):
+        for last in (False, True):
+            cases.check_single_bit(bit, last, dev)
+    cases.check_strided_spans(dev)
+    torch.cuda.synchronize()
+    return {"phase": "count_product_edges", "ragged_shapes": cases.EDGE_SHAPES,
+            "extreme_shapes": cases.EXTREME_SHAPES,
+            "extremes": ["all ones (counts 32G)", "no selection", "zero database"],
+            "single_bit_cases": 8, "strided_spans_equal_one_call": True,
+            "equal_to_plain": True}
+
+
 def tier_launches(plan, mode: str, key_groups: int) -> dict:
     """Launches of one batch of both parties on `plan`
     (`planner.ServingPlan`) in expansion `mode`."""
@@ -1149,6 +1197,20 @@ def main() -> int:
           "W": g0 << tail, "tile_lanes": tile_nodes * kg,
           "launches_per_batch": 1, **results["expand_tail"]})
 
+    # K1, its accumulate entry and K7 are one count product of 0/1 matrices,
+    # [nq, R] x [R, 32W]: 2 operations per (query, record, value bit, word),
+    # bound at the single-bit rate. Each line also gives the int8 rate it
+    # reached and its share of the int8 product's time.
+    def count_ops(nq, records, words):
+        return 2 * nq * records * 32 * words
+
+    def tensor_rate(part):
+        int8_ms = part["ops"] / INT8_OPS_PER_S * 1e3
+        return {"int8_ops_per_s": part["ops"] / (part["device_ms"] / 1e3),
+                "int8_bound_ms": int8_ms,
+                "int8_bound_share": int8_ms / part["device_ms"],
+                "bound_share": part["bound_ms"] / part["device_ms"]}
+
     # K1: the inner product over the bit-major staging.
     words = RECORD_BYTES // 4
     groups = NUM_RECORDS // 32
@@ -1158,8 +1220,9 @@ def main() -> int:
         "xor_inner_product",
         lambda: ipk.xor_inner_product_packed(db_perm, packed),
         lambda: ipk.xor_inner_product_packed_plain(db_perm, packed),
-        NUM_QUERIES * NUM_RECORDS * words,  # one 3-input logic op each
-        4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * words))
+        count_ops(NUM_QUERIES, NUM_RECORDS, words),
+        4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * words),
+        ops_per_s=B1_OPS_PER_S)
     ptxas = ptxas_table(cuda_lib.ptxas_report())
 
     def library(db_perm, packed):
@@ -1190,25 +1253,25 @@ def main() -> int:
     counts_lib, lib = library(db_perm, packed)
     if not torch.equal(parity_pack(counts_lib), ipk.xor_inner_product_packed(db_perm, packed)):
         raise AssertionError("xor_inner_product: the parity of the int8 product differs")
-    results["xor_inner_product"].update(lib, ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
+    results["xor_inner_product"].update(lib, **tensor_rate(results["xor_inner_product"]),
+                                        ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
     results["leaf_blocks"]["ptxas"] = ptxas_of(ptxas, "leaf_blocks_kernel")
     emit({"phase": "kernel", "name": "xor_inner_product",
           "shape": [NUM_QUERIES, NUM_RECORDS, words],
           "launches_per_batch": 1, **results["xor_inner_product"]})
 
-    # K7: the v1 inner product's counts on the same inputs. Its bound is the
-    # count product's: 2 operations per (query, record, value bit, word) on
-    # the int8 tensor cores.
+    # K7: the v1 inner product's counts on the same inputs.
     results["xor_counts"] = measure(
         "xor_counts",
         lambda: ipk.xor_counts(db_perm, packed),
         lambda: xor_counts_plain(db_perm, packed),
-        2 * NUM_QUERIES * NUM_RECORDS * 32 * words,
+        count_ops(NUM_QUERIES, NUM_RECORDS, words),
         4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * 32 * words),
-        ops_per_s=INT8_OPS_PER_S)
+        ops_per_s=B1_OPS_PER_S)
     if not torch.equal(counts_lib, ipk.xor_counts(db_perm, packed)):
         raise AssertionError("xor_counts: the int8 product's counts differ")
-    results["xor_counts"].update(lib, ptxas=ptxas_of(ptxas, "xor_counts_kernel"))
+    results["xor_counts"].update(lib, **tensor_rate(results["xor_counts"]),
+                                 ptxas=ptxas_of(ptxas, "xor_counts_kernel"))
     emit({"phase": "kernel", "name": "xor_counts",
           "shape": [NUM_QUERIES, NUM_RECORDS, words],
           "launches_per_batch": 1, **results["xor_counts"]})
@@ -1226,9 +1289,10 @@ def main() -> int:
         "xor_inner_product_accumulate",
         lambda: ipk.xor_inner_product_accumulate(acc, span, sel),
         lambda: acc0 ^ ipk.xor_inner_product_packed_plain(span, packed),
-        TIER_QUERIES * (1 << 17) * words,
+        count_ops(TIER_QUERIES, 1 << 17, words),
         4 * (32 * chunk_groups * words + TIER_QUERIES * chunk_groups
-             + 2 * TIER_QUERIES * words))
+             + 2 * TIER_QUERIES * words),
+        ops_per_s=B1_OPS_PER_S)
     halves = torch.zeros_like(acc0)
     half = chunk_groups // 2
     for lo in (0, half):
@@ -1241,11 +1305,15 @@ def main() -> int:
     if not torch.equal(parity_pack(counts_lib), halves):
         raise AssertionError("xor_inner_product_accumulate: the count product differs")
     results["xor_inner_product_accumulate"].update(
-        lib, ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
+        lib, **tensor_rate(results["xor_inner_product_accumulate"]),
+        ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
     emit({"phase": "kernel", "name": "xor_inner_product_accumulate",
           "shape": [TIER_QUERIES, 1 << 17, words], "halves_equal_one_call": True,
           **results["xor_inner_product_accumulate"]})
     del span, packed, sel, counts_lib
+
+    # The count product's ragged edges and extremes against the plain versions.
+    emit(count_product_edges(dev))
 
     # K9: Mosaic's tiling repeat, at the probe's shape and at a [256, 128]
     # source tiled 32 times (the v2 TPU kernel's selection repeat).
@@ -1473,7 +1541,7 @@ def main() -> int:
         ("walk_descend", "walk", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:649"),
         ("expand_tail", "tail", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:392"),
         ("expand_head", "tail", "csrc/expand_fused.cu", "ops/expand_planes_pallas.py:453"),
-        ("xor_counts", "v1", "csrc/inner_product_v1.cu", "ops/inner_product_pallas.py:130"),
+        ("xor_counts", "v1", "csrc/inner_product.cu", "ops/inner_product_pallas.py:130"),
         # No TPU kernel: the JAX package leaves plane layout in XLA here.
         ("leaf_blocks", DEFAULT_EXPANSION, "csrc/leaf_blocks.cu",
          "pir/dense_eval_planes.py:1632"),

@@ -33,8 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 
 SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu",
-           "inner_product_v1.cu", "path_level.cu", "repeat_tiles.cu",
-           "leaf_blocks.cu")
+           "path_level.cu", "repeat_tiles.cu", "leaf_blocks.cu")
 LIB_NAME = "libdpf_kernels.so"
 HEADERS = ("aes_generated.cuh", "expand_body.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

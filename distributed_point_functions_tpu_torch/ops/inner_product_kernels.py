@@ -20,9 +20,10 @@ a database in such spans.
 The module also holds the two other TPU kernels of the JAX package's
 `ops/inner_product_pallas.py`:
 
-* K7 `xor_counts` (`_ip_kernel`, `:130`; CUDA in
-  `csrc/inner_product_v1.cu`): the v1 inner product's per-value-bit
-  selection counts, int32[nq, 32, W]; `xor_inner_product_staged_v1` (the
+* K7 `xor_counts` (`_ip_kernel`, `:130`; CUDA in `csrc/inner_product.cu`,
+  K1's kernel body with a count epilogue): the v1 inner product's
+  per-value-bit selection counts, int32[nq, 32, W];
+  `xor_inner_product_staged_v1` (the
   counterpart of `xor_inner_product_pallas_staged`, `:258`, and of
   `xor_inner_product_pallas`, `:543`) takes their parity, as the JAX
   package does outside its kernel, and keeps its cap of
@@ -31,12 +32,16 @@ The module also holds the two other TPU kernels of the JAX package's
   `csrc/repeat_tiles.cu`): Mosaic's tiling repeat, `[a b] -> [a b a b]`,
   and `interpret_repeat_tiles`, the probe's counterpart.
 
-Bound on the H100: 32-bit logic, one masked XOR per query × record ×
-word, several times the time of one pass over the database. The kernel
-reads the database once per 128-query tile through shared memory, keeps
-16 query accumulators per thread in registers, and combines blocks with
-`atomicXor` (exact in any order; no count bound, unlike int8 parity
-counts).
+K1 and K7 are one count product of 0/1 matrices, selections [nq, R] by
+database bits [R, 32W], with two epilogues: K7 adds the int32 counts,
+K1 XORs their parity packed 32 value bits to a word. The kernel runs it
+on the tensor cores' single-bit path (`mma.sync` b1, an AND and a count
+per bit pair) on the packed words: the selection words are its A
+fragments as they are, and each block transposes the database words 32
+x 32 in registers into shared memory once. Bound on the H100: the packed
+bytes or the single-bit products, whichever is more. Blocks over record
+spans combine with `atomicAdd` or `atomicXor`, exact in any order (K1
+keeps only parities, so it needs no count bound).
 """
 
 from __future__ import annotations
