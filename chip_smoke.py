@@ -14,7 +14,11 @@ non-zero before printing a result. Phases, one JSON line each:
    clock); the raw `nvidia-smi --query-gpu=name,power.limit` line is
    printed on its own line too.
 2. `build`: the kernels built from `csrc/` (seconds, and the registers
-   and spills `nvcc -Xptxas -v` reports).
+   and spills `nvcc -Xptxas -v` reports). Then `split_aes`: the latency
+   of one level of the split AES (csrc/split_aes.cuh) at one group, read
+   from a one-column K8 walk of 256 levels that equals its plain version
+   (a level: the select-key AES, sigma, the corrections and the control,
+   what a caller's walk pays a level).
 3. `kernel`: every kernel at the main path's shapes (2^20 x 256 B
    records, 128 queries, 13 expansion levels): K2 `expand_level` (its 13
    levels summed; `level_ms` and `level_bound_ms` give each), K3
@@ -25,8 +29,13 @@ non-zero before printing a result. Phases, one JSON line each:
    tiles); K8 `path_level` (one path-walk level: per seed at 32 word
    columns, the DCF's 1,024 keys, and at 2,048; shared corrections at
    2,048, at 32, `evaluate_at`'s 1,024 points, and at 2, `evaluate_next`'s
-   64 prefixes); and K3 at the DCF's 1,024 columns (32 levels' states of
-   1,024 keys hashed in one launch). Kernel and plain PyTorch version on the same seeded inputs
+   64 prefixes; then the walks of one launch its callers make: the DCF's
+   31 levels with 32 stops at 32 word columns, and a chunk's 5 path bits
+   at 32); and K3 at the DCF's 1,024 columns (32 levels' states of 1,024
+   keys hashed in one launch). K4's and K8's lines also give the group
+   size of their split AES (16 threads a word column), their registers
+   and spills, and that level latency. Kernel and plain PyTorch version
+   on the same seeded inputs
    must be `torch.equal`; `ms`, one call timed alone between CUDA
    events (the card also waits on the wrapper's host dispatch),
    `device_ms`, the device time of one launch (20 launches queued
@@ -62,16 +71,18 @@ non-zero before printing a result. Phases, one JSON line each:
      batches of 1,024 and 256 keys (one key pair, the parties
      alternating) at random points; each point also evaluated with the
      parties swapped, and every pair of shares must reconstruct
-     beta * [x < alpha] mod 2^64; 31 K8 and 1 K3 launches a batch;
+     beta * [x < alpha] mod 2^64; one K8 launch (31 levels, 32 stops)
+     and one K3 launch a batch;
      evaluations per second, device idle share;
    - `dpf_full_domain`, once per expansion mode: one key pair over 2^20,
      IntType(64), `evaluate_until(0, [], ctx)`; the modes' shares equal,
      the two parties' sum beta at alpha and 0 elsewhere; ms per
      evaluation;
    - `dpf_point`: `evaluate_at` at 1,024 points equals the full-domain
-     values there (19 K8 launches a party); an incremental DPF over
+     values there (one K8 launch of 19 levels a party); an incremental
+     DPF over
      (8, 14, 20) through `evaluate_next` with 64 prefixes per level after
-     the first (resumed through K8) reconstructs at every level and
+     the first (resumed through one K8 launch) reconstructs at every level and
      equals its own full-domain evaluation at the last; one more
      `evaluate_next` at 40 prefixes walks its narrow levels on K8.
    Every call's values in these phases must also equal the plain
@@ -107,9 +118,10 @@ non-zero before printing a result. Phases, one JSON line each:
    - `kernel` lines at the tiers' shapes (configs[2], 32 word columns of
      keys): K4's head and tail for the materialized tier's 15 levels and
      for one streaming or chunked chunk's 10 levels from one node's 32
-     columns, K2 at every width from 32 to 32,768 columns (the streaming
-     cut state's and the materialized tier's middle levels), each
-     `torch.equal` to its plain version;
+     columns, and for the DPF full domain's 14 plane levels (configs[0],
+     one key word), K2 at every width from 32 to 32,768 columns (the
+     streaming cut state's and the materialized tier's middle levels),
+     each `torch.equal` to its plain version;
    - `kernel` lines for `leaf_blocks` (the leaf values out of plane
      layout into selection blocks, in the expansion's exit order: at the
      main path's 8,192 blocks, the materialized tier's 32,768 and one
@@ -126,15 +138,16 @@ non-zero before printing a result. Phases, one JSON line each:
      the same budget with `set_tier_floor("chunked")`. Each prints the
      planner's plan; the streaming and chunked responses must equal the
      materialized tier's and reconstruct every queried record, with the
-     launch counts the plan gives (K1 = 2 x chunks); q/s, the device's
+     launch counts the plan gives (K1 = 2 x chunks; on the chunked tier
+     one K8 walk a chunk); q/s, the device's
      idle share, and the modeled against the measured peak bytes
      (`torch.cuda.max_memory_allocated` around one party's batch), with
      the bytes of that batch's staged keys and response rows, which the
      model does not count, measured beside them.
 8. `{"kernels": [...]}`: every ported kernel with its launches on the
    main path (the run of the mode or path that launches it; K1 from the
-   default mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of one
-   launch at its 32 word columns; K7 from `main_path_v1`, the accumulate
+   default mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of its
+   31-level walk at 32 word columns; K7 from `main_path_v1`, the accumulate
    entry from `streaming`, K9 from `probe`, `leaf_blocks` from the default
    mode's), its agreement, times (`ms` and `device_ms`) and bound.
 9. `{"ok": true, "device": {...}}` as the last line.
@@ -191,6 +204,10 @@ MIXCOLUMN_XORS = 92
 # Cycles of the device-side sleep that `kernel_time_ms` queues first
 # (~25 ms at 2 GHz): longer than the host takes to dispatch 20 launches.
 SLEEP_CYCLES = 50_000_000
+# Threads a word column's AES takes in K4 and K8 (`kGroup`,
+# csrc/split_aes.cuh), and the levels of the walk that times one level.
+SPLIT_GROUP = 16
+LATENCY_LEVELS = 256
 
 
 def emit(obj) -> None:
@@ -445,9 +462,9 @@ def dcf_phase(rng, dev) -> dict:
     alternating, as the JAX package's benchmark does) at as many random
     points. Each point is evaluated with both parties' keys (the batch,
     then a batch with the parties swapped), and every pair of shares must
-    reconstruct beta * [x < alpha] mod 2^64. A batch walks 31 tree levels:
-    31 K8 launches and one K3 launch. Returns the 1,024-key batch's launch
-    counts."""
+    reconstruct beta * [x < alpha] mod 2^64. A batch walks 31 tree levels
+    in one K8 launch (32 stops, one a hierarchy level) and hashes the stops
+    in one K3 launch. Returns the 1,024-key batch's launch counts."""
     import torch
 
     from distributed_point_functions_tpu_torch.dcf import DistributedComparisonFunction
@@ -475,7 +492,7 @@ def dcf_phase(rng, dev) -> dict:
         run()  # warm-up
         out = []
         launches = counted(lambda: out.append(run()),
-                           {"path_level": DCF_LDS - 1, "value_hash": 1},
+                           {"path_level": 1, "value_hash": 1},
                            f"dcf {batch} keys")
         shares = (out[0], dcf.batch_evaluate(None, xs, staged=swapped))
         # The card against the plain versions on the host, on the same
@@ -582,16 +599,17 @@ def dpf_full_domain_phase(rng, dev) -> dict:
 
 def dpf_point_phase(rng, dev, full: dict) -> None:
     """Point and resumed hierarchical evaluation. `evaluate_at` at 1,024
-    points of the full-domain key (no context: K8 in shared mode, 19
-    launches a party) must equal its full-domain values there. An
+    points of the full-domain key (no context: K8 in shared mode, one
+    launch of 19 levels a party) must equal its full-domain values there. An
     incremental DPF over (8, 14, 20) with the same alpha is evaluated with
     `evaluate_next`, 64 prefixes per level after the first (resumed
     through K8 from the context); its last level must equal its own
     full-domain evaluation at those points, and every level's shares must
     reconstruct. Then one `evaluate_next` at 40 prefixes, not a multiple
-    of 32: its first 2 expansion levels walk on the card (K8) until 160
-    lanes fill whole words. Every call's values must equal the plain
-    versions' on the host for the same keys and prefixes."""
+    of 32: its first 2 expansion levels walk on the card (K8, one launch
+    besides the resumed walk's) until 160 lanes fill whole words. Every
+    call's values must equal the plain versions' on the host for the same
+    keys and prefixes."""
     import torch
 
     from distributed_point_functions_tpu_torch.dpf import DistributedPointFunction, DpfParameters
@@ -604,7 +622,7 @@ def dpf_point_phase(rng, dev, full: dict) -> None:
     dpf.evaluate_at(keys[0], 0, pts)  # warm-up
     out = []
     at_launches = counted(lambda: out.extend(dpf.evaluate_at(k, 0, pts) for k in keys),
-                          {"path_level": 2 * tree, "value_hash": 2}, "evaluate_at")
+                          {"path_level": 2, "value_hash": 2}, "evaluate_at")
     cpu = DistributedPointFunction.create(dpf.parameters[0], device="cpu")
     idx = torch.tensor(pts, device=dev)
     for got, want, k in zip(out, full["shares"], keys):
@@ -670,7 +688,7 @@ def dpf_point_phase(rng, dev, full: dict) -> None:
         want = {k: 2 * v for k, v in expansion_launches(
             "walk", expand, len(prefixes) // 32 if hl else 1).items()}
         if walk_levels[hl]:
-            want["path_level"] = 2 * walk_levels[hl]
+            want["path_level"] = 2  # one walk a party
         out = []
         launches = counted(lambda: out.extend(inc.evaluate_next(prefixes, c) for c in ctxs),
                            want, f"evaluate_next level {hl}")
@@ -695,7 +713,7 @@ def dpf_point_phase(rng, dev, full: dict) -> None:
         inc_cpu.evaluate_next([], c_cpu)
     expand = inc._hierarchy_to_tree[1] - inc._hierarchy_to_tree[0] - 2
     want = {k: 2 * v for k, v in expansion_launches("walk", expand, 5).items()}
-    want["path_level"] = 2 * (inc._hierarchy_to_tree[0] + 2)
+    want["path_level"] = 2 * 2  # a party: the resumed walk and the narrow levels
     out = []
     narrow_launches = counted(lambda: out.extend(inc.evaluate_next(narrow, c) for c in ctxs),
                               want, "evaluate_next at 40 prefixes")
@@ -809,7 +827,8 @@ def tier_launches(plan, mode: str, key_groups: int) -> dict:
         add(expansion_launches(mode, plan.chunk_levels, key_groups), plan.num_chunks)
         add({"leaf_blocks": 1, "xor_inner_product": 1}, plan.num_chunks)
     else:
-        add({"path_level": plan.cut_levels}, plan.num_chunks)
+        if plan.cut_levels:  # one K8 walk a chunk
+            add({"path_level": 1}, plan.num_chunks)
         add(expansion_launches(mode, plan.chunk_levels, key_groups), plan.num_chunks)
         add({"leaf_blocks": 1, "xor_inner_product": 1}, plan.num_chunks)
     return {name: 2 * n for name, n in per_party.items() if n}
@@ -1017,6 +1036,26 @@ def main() -> int:
     def rand_words(*shape):
         return to_tensor(rng.integers(0, 1 << 32, shape, dtype=np.uint32), dev)
 
+    ptxas = ptxas_table(cuda_lib.ptxas_report())
+
+    # The latency of one split-AES level at one group: one word column
+    # walked through LATENCY_LEVELS levels in one K8 launch, device time
+    # over the levels.
+    lat_args = (rand_words(16, 8, 1), rand_words(1), rand_words(LATENCY_LEVELS, 1),
+                rand_words(LATENCY_LEVELS, 16, 8, 1), rand_words(LATENCY_LEVELS, 1),
+                rand_words(LATENCY_LEVELS, 1))
+    require_equal("path_walk at one column", ep.path_walk(*lat_args),
+                  ep.path_walk_plain(*lat_args, (LATENCY_LEVELS,)))
+    level_us = kernel_time_ms(lambda: ep.path_walk(*lat_args), reps=5) * 1e3 / LATENCY_LEVELS
+    emit({"phase": "split_aes", "group_size": SPLIT_GROUP, "levels": LATENCY_LEVELS,
+          "level_latency_us_at_one_group": level_us})
+
+    def split_info(kernel):
+        """The group size of K4's and K8's split AES, the kernel's
+        registers and spills, and the level latency at one group."""
+        return {"group_size": SPLIT_GROUP, "level_latency_us_at_one_group": level_us,
+                "ptxas": ptxas_of(ptxas, kernel)}
+
     # 3. Kernels at the main path's shapes.
     kg = NUM_QUERIES // 32
     expand_levels = ((NUM_RECORDS // 128) - 1).bit_length()
@@ -1107,7 +1146,8 @@ def main() -> int:
         phases.append(part)
         emit({"phase": "kernel", "name": "walk_descend", "walk_phase": phase,
               "G0": g0, "levels": r, "W": g0 << r, "value_hash": vh,
-              "launches_per_batch": 1, **part})
+              "launches_per_batch": 1, **part,
+              **split_info("walk_descend_kernel")})
     results["walk_descend"] = add_up(phases)
 
     # K4 and K2 at the serving tiers' shapes (BASELINE configs[2]: 1,024
@@ -1115,24 +1155,29 @@ def main() -> int:
     # materialized tier's 15 levels and for one streaming or chunked
     # chunk's 10 levels from one node's 32 columns; K2 at every width of
     # the streaming cut state (32 -> 512 columns) and of the materialized
-    # tier's middle levels (2,048 -> 32,768).
+    # tier's middle levels (2,048 -> 32,768). K4 also at the DPF full
+    # domain's (BASELINE configs[0]: one key, KG = 1, 14 plane levels).
     tier_kg = TIER_QUERIES // 32
     tier_levels = ((TIER_RECORDS // 128) - 1).bit_length()
-    for label, levels in (("materialized", tier_levels), ("chunk", TIER_CHUNK_LEVELS)):
-        head, tail, _ = expansion_plan("walk", tier_kg, levels)
-        for phase, g0, r, vh in (("head", tier_kg, head, False),
-                                 ("tail", tier_kg << (levels - tail), tail, True)):
-            *args, vc = fused_args(g0, r, tier_kg)
+    # The DPF's tree has FD_LDS - 1 levels, 5 of them on the host.
+    for label, key_groups, levels in (("materialized", tier_kg, tier_levels),
+                                      ("chunk", tier_kg, TIER_CHUNK_LEVELS),
+                                      ("dpf_full_domain", 1, FD_LDS - 1 - 5)):
+        head, tail, _ = expansion_plan("walk", key_groups, levels)
+        for phase, g0, r, vh in (("head", key_groups, head, False),
+                                 ("tail", key_groups << (levels - tail), tail, True)):
+            *args, vc = fused_args(g0, r, key_groups)
             part = measure(
                 f"walk_descend {label} {phase}",
                 lambda: ep.walk_descend(*args, vc, value_hash=vh),
                 lambda: ep.walk_descend_plain(*args, vc, value_hash=vh),
-                *doubling_work(g0, r, vh, tier_kg), plain_reps=1)
+                *doubling_work(g0, r, vh, key_groups), plain_reps=1)
             results["walk_descend"]["err"] = max(results["walk_descend"]["err"],
                                                  part["err"])
             emit({"phase": "kernel", "name": "walk_descend", "tier_shape": label,
-                  "walk_phase": phase, "KG": tier_kg, "G0": g0, "levels": r,
-                  "W": g0 << r, "value_hash": vh, **part})
+                  "walk_phase": phase, "KG": key_groups, "G0": g0, "levels": r,
+                  "W": g0 << r, "value_hash": vh, **part,
+                  **split_info("walk_descend_kernel")})
     _, tail, _ = expansion_plan("walk", tier_kg, tier_levels)
     for i in range(tier_levels - tail):  # every K2 input width of both tiers
         g = tier_kg << i
@@ -1223,8 +1268,6 @@ def main() -> int:
         count_ops(NUM_QUERIES, NUM_RECORDS, words),
         4 * (32 * groups * words + NUM_QUERIES * groups + NUM_QUERIES * words),
         ops_per_s=B1_OPS_PER_S)
-    ptxas = ptxas_table(cuda_lib.ptxas_report())
-
     def library(db_perm, packed):
         """One PyTorch call on the unpacked 0/1 operands that computes the
         counts K7 computes, whose parity is K1's product: `torch._int_mm`
@@ -1339,22 +1382,37 @@ def main() -> int:
 
     # K8: one path-walk level (select-key AES, corrections, control), per
     # seed at the DCF's width (1,024 keys: 32 word columns) and at 65,536
-    # lanes, and with one key's shared corrections (KW = 1) at 65,536
-    # lanes. A column: the select-key AES + 64 sigma + 128 feed-forward +
-    # 256 correction + 5 control operations.
+    # lanes, and with one key's shared corrections (KW = 1) at 65,536, 1,024
+    # and 64 lanes; then the walks its callers launch: the DCF's 31 levels
+    # with a stop at each of its 32 hierarchy levels (G = KW = 32) and a
+    # chunk's 5 path bits (configs[2], G = KW = 32, every key on one branch).
+    # A column and level: the select-key AES + 64 sigma + 128 feed-forward
+    # + 256 correction + 5 control operations; the bytes: the entry state
+    # and control, the select words and corrections of every level, and the
+    # states and controls of every stop, each once.
     path_ops = aes_ops["select"] + 64 + 128 + 256 + 5
     k8 = {}
-    for mode, g, kw in (("per_seed", 32, 32), ("per_seed", 2048, 2048),
-                        ("shared", 2048, 1), ("shared", 32, 1), ("shared", 2, 1)):
-        args = (rand_words(16, 8, g), rand_words(g), rand_words(g),
-                rand_words(16, 8, kw), rand_words(kw), rand_words(kw))
+    for mode, g, kw, levels, stops in (
+            ("per_seed", 32, 32, 1, (1,)), ("per_seed", 2048, 2048, 1, (1,)),
+            ("shared", 2048, 1, 1, (1,)), ("shared", 32, 1, 1, (1,)),
+            ("shared", 2, 1, 1, (1,)),
+            ("dcf_walk", 32, 32, DCF_LDS - 1, tuple(range(DCF_LDS))),
+            ("chunk_walk", 32, 32, 5, (5,))):
+        sel = (rand_words(levels, g) if mode != "chunk_walk" else
+               -to_tensor(rng.integers(0, 2, (levels, 1), dtype=np.uint32), dev).expand(
+                   levels, g).contiguous())
+        args = (rand_words(16, 8, g), rand_words(g), sel,
+                rand_words(levels, 16, 8, kw), rand_words(levels, kw),
+                rand_words(levels, kw))
         k8[mode, g] = measure(
-            f"path_level {mode} G={g}", lambda: ep.path_level(*args),
-            lambda: ep.path_level_plain(*args), g * path_ops,
-            4 * (128 * g + 2 * g + 128 * kw + 2 * kw + 128 * g + g))
+            f"path_level {mode} G={g}", lambda: ep.path_walk(*args, stops=stops),
+            lambda: ep.path_walk_plain(*args, stops), levels * g * path_ops,
+            4 * (129 * g + levels * (g + 130 * kw) + len(stops) * 129 * g))
         emit({"phase": "kernel", "name": "path_level", "mode": mode, "G": g,
-              "KW": kw, "lanes": 32 * g, **k8[mode, g]})
-    results["path_level"] = k8["per_seed", 32]
+              "KW": kw, "lanes": 32 * g, "levels": levels, "stops": len(stops),
+              **k8[mode, g],
+              **split_info("path_walk_kernel")})
+    results["path_level"] = k8["dcf_walk", 32]
 
     # K3 at the DCF's shape: the walk states of its 32 hierarchy levels,
     # 32 word columns each, hashed with zero corrections in one launch.

@@ -899,3 +899,70 @@ __device__ __forceinline__ void add_round_key_select(uint32_t (&s)[128], uint32_
     default: break;
   }
 }
+
+// ShiftRows: position k = 4c + r of the shifted state takes input byte
+// r + 4 * ((c + r) % 4).
+__device__ __forceinline__ int shift_rows_source(int k) {
+  return (k & 3) + 4 * (((k >> 2) + (k & 3)) & 3);
+}
+
+// One MixColumns output byte (8 planes) from its shifted byte a, the
+// pair sum v = a ^ a_{r+1} and the pair sum v2 = a_{r+2} ^ a_{r+3}.
+__device__ __forceinline__ void mix_byte(const uint32_t (&a)[8], const uint32_t (&v)[8], const uint32_t (&v2)[8], uint32_t (&o)[8]) {
+  o[0] = a[0] ^ v[0] ^ v2[0] ^ v[7];
+  o[1] = a[1] ^ v[1] ^ v2[1] ^ v[0] ^ v[7];
+  o[2] = a[2] ^ v[2] ^ v2[2] ^ v[1];
+  o[3] = a[3] ^ v[3] ^ v2[3] ^ v[2] ^ v[7];
+  o[4] = a[4] ^ v[4] ^ v2[4] ^ v[3] ^ v[7];
+  o[5] = a[5] ^ v[5] ^ v2[5] ^ v[4];
+  o[6] = a[6] ^ v[6] ^ v2[6] ^ v[5];
+  o[7] = a[7] ^ v[7] ^ v2[7] ^ v[6];
+}
+
+// Round-key bytes [key id][round][byte] of kKeyLeft, kKeyRight, kKeyValue.
+#ifdef __CUDACC__
+#define DPF_KEY_TABLE static __device__ const
+#else
+#define DPF_KEY_TABLE static const
+#endif
+DPF_KEY_TABLE uint8_t kRoundKeyBytes[3][11][16] = {
+  {
+    {194, 59, 228, 120, 250, 184, 243, 111, 254, 244, 249, 104, 177, 56, 157, 49},
+    {196, 101, 35, 176, 62, 221, 208, 223, 192, 41, 41, 183, 113, 17, 180, 134},
+    {68, 232, 103, 19, 122, 53, 183, 204, 186, 28, 158, 123, 203, 13, 42, 253},
+    {151, 13, 51, 12, 237, 56, 132, 192, 87, 36, 26, 187, 156, 41, 48, 70},
+    {58, 9, 105, 210, 215, 49, 237, 18, 128, 21, 247, 169, 28, 60, 199, 239},
+    {193, 207, 182, 78, 22, 254, 91, 92, 150, 235, 172, 245, 138, 215, 107, 26},
+    {239, 176, 20, 48, 249, 78, 79, 108, 111, 165, 227, 153, 229, 114, 136, 131},
+    {239, 116, 248, 233, 22, 58, 183, 133, 121, 159, 84, 28, 156, 237, 220, 159},
+    {58, 242, 35, 55, 44, 200, 148, 178, 85, 87, 192, 174, 201, 186, 28, 49},
+    {213, 110, 228, 234, 249, 166, 112, 88, 172, 241, 176, 246, 101, 75, 172, 199},
+    {80, 255, 34, 167, 169, 89, 82, 255, 5, 168, 226, 9, 96, 227, 78, 206},
+  },
+  {
+    {102, 166, 25, 74, 171, 82, 243, 35, 228, 184, 140, 248, 44, 44, 8, 1},
+    {22, 150, 101, 59, 189, 196, 150, 24, 89, 124, 26, 224, 117, 80, 18, 225},
+    {71, 95, 157, 166, 250, 155, 11, 190, 163, 231, 17, 94, 214, 183, 3, 191},
+    {234, 36, 149, 80, 16, 191, 158, 238, 179, 88, 143, 176, 101, 239, 140, 15},
+    {61, 64, 227, 29, 45, 255, 125, 243, 158, 167, 242, 67, 251, 72, 126, 76},
+    {127, 179, 202, 18, 82, 76, 183, 225, 204, 235, 69, 162, 55, 163, 59, 238},
+    {85, 81, 226, 136, 7, 29, 85, 105, 203, 246, 16, 203, 252, 85, 43, 37},
+    {233, 160, 221, 56, 238, 189, 136, 81, 37, 75, 152, 154, 217, 30, 179, 191},
+    {27, 205, 213, 13, 245, 112, 93, 92, 208, 59, 197, 198, 9, 37, 118, 121},
+    {63, 245, 99, 12, 202, 133, 62, 80, 26, 190, 251, 150, 19, 155, 141, 239},
+    {29, 168, 188, 113, 215, 45, 130, 33, 205, 147, 121, 183, 222, 8, 244, 88},
+  },
+  {
+    {130, 94, 56, 4, 149, 17, 20, 56, 54, 191, 132, 1, 25, 254, 118, 188},
+    {56, 102, 93, 208, 173, 119, 73, 232, 155, 200, 205, 233, 130, 54, 187, 85},
+    {63, 140, 161, 195, 146, 251, 232, 43, 9, 51, 37, 194, 139, 5, 158, 151},
+    {80, 135, 41, 254, 194, 124, 193, 213, 203, 79, 228, 23, 64, 74, 122, 128},
+    {142, 93, 228, 247, 76, 33, 37, 34, 135, 110, 193, 53, 199, 36, 187, 181},
+    {168, 183, 49, 49, 228, 150, 20, 19, 99, 248, 213, 38, 164, 220, 110, 147},
+    {14, 40, 237, 120, 234, 190, 249, 107, 137, 70, 44, 77, 45, 154, 66, 222},
+    {246, 4, 240, 160, 28, 186, 9, 203, 149, 252, 37, 134, 184, 102, 103, 88},
+    {69, 129, 154, 204, 89, 59, 147, 7, 204, 199, 182, 129, 116, 161, 209, 217},
+    {108, 191, 175, 94, 53, 132, 60, 89, 249, 67, 138, 216, 141, 226, 91, 1},
+    {194, 134, 211, 3, 247, 2, 239, 90, 14, 65, 101, 130, 131, 163, 62, 131},
+  },
+};

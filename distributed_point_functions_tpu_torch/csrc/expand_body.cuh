@@ -22,6 +22,7 @@
 #define DPF_UNROLL _Pragma("unroll")
 #define DPF_NO_UNROLL _Pragma("unroll 1")
 #else
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define DPF_UNROLL
@@ -46,38 +47,12 @@ __device__ __forceinline__ void aes_encrypt_fixed(uint32_t (&s)[128], int key) {
   }
 }
 
-// AES-128 with kKeyLeft where a lane's `sel` bit is 0 and kKeyRight where
-// it is 1, one pass for both (the select-key hash of the walk descent).
-__device__ __forceinline__ void aes_encrypt_select(uint32_t (&s)[128], uint32_t sel) {
-  add_round_key_select(s, sel, 0);
-  DPF_NO_UNROLL
-  for (int rnd = 1; rnd <= 10; ++rnd) {
-    sub_bytes(s);
-    if (rnd < 10) {
-      shift_rows_mix_columns(s);
-    } else {
-      shift_rows(s);
-    }
-    add_round_key_select(s, sel, rnd);
-  }
-}
-
 // Plane p of sigma(x) = (hi ^ lo, hi) for word column m of the [128, G]
 // planes at `in`: planes 0-63 (bytes 0-7) take hi = planes 64-127, planes
 // 64-127 take hi ^ lo.
 __device__ __forceinline__ uint32_t sigma_plane(const uint32_t* in, int64_t g,
                                                 int64_t m, int p) {
   return p < 64 ? in[(p + 64) * g + m] : in[p * g + m] ^ in[(p - 64) * g + m];
-}
-
-// sigma in place on a column held in registers.
-__device__ __forceinline__ void sigma_regs(uint32_t (&s)[128]) {
-  DPF_UNROLL
-  for (int p = 0; p < 64; ++p) {
-    const uint32_t lo = s[p];
-    s[p] = s[p + 64];
-    s[p + 64] ^= lo;
-  }
 }
 
 // Child `child` (0 left, 1 right) of input column m of the [128, g]

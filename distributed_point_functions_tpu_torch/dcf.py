@@ -11,8 +11,8 @@ of 0 otherwise (Algorithm 7 of eprint 2022/866, the reference's
   (log_domain_size - 1 - i) of alpha is 1 and to 0 otherwise, and keys the
   DPF on `alpha >> 1`: the last bit is carried by the last level's value;
 * `batch_evaluate` runs the DPF's multi-key engine
-  (`evaluate_and_accumulate`: one K8 launch per tree level for the whole
-  batch) with `evaluation_points_rightshift=1`, adding level i's value
+  (`evaluate_and_accumulate`: one K8 launch walks every tree level of the
+  whole batch) with `evaluation_points_rightshift=1`, adding level i's value
   wherever bit (log_domain_size - 1 - i) of x is 0.
 
 There is one engine and no fallback.

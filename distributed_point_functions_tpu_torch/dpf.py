@@ -15,8 +15,8 @@ The port of the JAX package's `dpf.py`:
     with one key's shared corrections, and leaves plane layout once, in
     natural domain order;
   - path walks (`evaluate_at`, resumed hierarchical evaluation, and the
-    multi-key engine behind the DCF) run K8 `path_level` once per tree
-    level, with shared or per-seed corrections;
+    multi-key engine behind the DCF) run every tree level of a walk in one
+    K8 `path_walk` launch, with shared or per-seed corrections;
   - leaf values come from K3 `value_hash`, then limb arithmetic on the
     value types (`value_types.py`).
 * **EvaluationContext** is the checkpoint of a partially evaluated DPF
@@ -56,7 +56,7 @@ from .ops.aes_bitslice import (
     planes_to_limbs,
     unpack_select_bits,
 )
-from .ops.expand_planes import path_level, value_hash
+from .ops.expand_planes import path_walk, value_hash
 from .ops.words import to_tensor, to_tensors
 from .value_types import IntType, ValueType, XorType
 
@@ -152,8 +152,8 @@ class EvaluationContext:
 class StagedKeyBatch:
     """A batch of keys staged on the device once, in the multi-key engine's
     layout: the keys pad to 32G lanes (G word columns), key k in lane k,
-    and every tree level's corrections are packed planes, so each level is
-    one K8 launch in per-seed mode. Reusable across evaluations (the DCF
+    and every tree level's corrections are packed planes, so the whole walk
+    is one K8 launch in per-seed mode. Reusable across evaluations (the DCF
     evaluates one batch at many points)."""
 
     n: int
@@ -240,15 +240,16 @@ def _to_device(dev, *groups: dict) -> List[dict]:
 
 
 def _eval_paths(state, ctrl, sel, cwp, cwl, cwr):
-    """Walk L tree levels of every lane's path, one K8 launch per level.
+    """Walk L tree levels of every lane's path in one K8 launch (none for
+    L = 0).
 
     state int32[16, 8, G] and ctrl int32[G] (packed); sel int32[L, G]
     packed path bits; cwp int32[L, 16, 8, KW] and cwl / cwr int32[L, KW]
     with KW = 1 (one key's shared corrections) or G (per seed). The walk
     stays in plane layout; callers enter and leave it once."""
-    for j in range(sel.shape[0]):
-        state, ctrl = path_level(state, ctrl, sel[j], cwp[j], cwl[j], cwr[j])
-    return state, ctrl
+    if sel.shape[0] == 0:
+        return state, ctrl
+    return path_walk(state, ctrl, sel, cwp, cwl, cwr)
 
 
 def _walk_shared(state, ctrl, t: dict):
@@ -757,7 +758,7 @@ class DistributedPointFunction:
                 hierarchy_level: int, update_ctx: bool):
         """Device half: seeds / control bits (int32[n, 4] / int32[n]) of
         `tree_indices` at the hierarchy level's tree level, one K8 launch
-        per tree level walked. With `update_ctx` they become the context's
+        for the levels walked. With `update_ctx` they become the context's
         partial evaluations, on the device."""
         n = len(tree_indices)
         if "rows" in t:
@@ -946,8 +947,8 @@ class DistributedPointFunction:
                     ctx: Optional[EvaluationContext] = None):
         """Evaluate `key` at points of the hierarchy level's domain: returns
         int32[len(evaluation_points), nlimbs]. Without `ctx` every path
-        walks from the root with the key's shared corrections (K8 per tree
-        level); with it the walk resumes from, and updates, the context."""
+        walks from the root with the key's shared corrections (one K8
+        launch); with it the walk resumes from, and updates, the context."""
         if ctx is not None and ctx.key is not key:
             raise ValueError("key and ctx.key must be the same object")
         self._validate_key(key)
@@ -983,8 +984,8 @@ class DistributedPointFunction:
                           evaluation_points: Sequence[int],
                           evaluation_points_rightshift: int) -> list:
         """The multi-key engine: key k of `staged` walks the path of point k
-        through every tree level (K8 in per-seed mode, one launch per level),
-        the walk states at each hierarchy level's tree level are kept, one
+        through every tree level in one K8 launch in per-seed mode, which
+        writes out the walk states at each hierarchy level's tree level; one
         K3 launch hashes them all (every ported value type fits one
         block), and one leaf stage per value type corrects them. Returns
         per hierarchy level the keys' values int32[n, nlimbs], each party-1
@@ -1015,20 +1016,16 @@ class DistributedPointFunction:
             [pack_select_bits_np(_path_bits(paths, bits)), block_indices,
              *groups.values()], dev)
 
-        state, ctrl = staged.state, staged.ctrl
-        states, ctrls = [], []
-        t = 0
-        for stop in self._hierarchy_to_tree:
-            state, ctrl = _eval_paths(
-                state, ctrl, sel[t:stop], staged.cw_planes[t:stop],
-                staged.cw_left[t:stop], staged.cw_right[t:stop])
-            t = stop
-            states.append(state)
-            ctrls.append(ctrl)
+        # One walk through every tree level, stopping at each hierarchy
+        # level's: the stops' states side by side, one K3 launch for all.
+        states, ctrls = path_walk(
+            staged.state, staged.ctrl, sel, staged.cw_planes[:levels],
+            staged.cw_left[:levels], staged.cw_right[:levels],
+            stops=self._hierarchy_to_tree)
         num_hl = len(self.parameters)
-        hashed = _hash_planes(torch.cat(states, dim=-1))
+        hashed = _hash_planes(states)
         blocks = planes_to_limbs(hashed).reshape(num_hl, lanes, 1, 4)
-        control = unpack_select_bits(torch.cat(ctrls)).reshape(num_hl, lanes)
+        control = unpack_select_bits(ctrls).reshape(num_hl, lanes)
 
         out = [None] * num_hl
         negate = staged.parties != 0

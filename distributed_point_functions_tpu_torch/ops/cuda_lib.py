@@ -35,7 +35,7 @@ BUILD_ROOT = _PKG / "build"
 SOURCES = ("expand_planes.cu", "expand_fused.cu", "inner_product.cu",
            "path_level.cu", "repeat_tiles.cu", "leaf_blocks.cu")
 LIB_NAME = "libdpf_kernels.so"
-HEADERS = ("aes_generated.cuh", "expand_body.cuh")
+HEADERS = ("aes_generated.cuh", "expand_body.cuh", "split_aes.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,7 +57,8 @@ _SIGNATURES = {
     "dpf_repeat_tiles": [_P] * 2 + [_I64] * 3 + [_P],
     "dpf_walk_descend": [_P] * 8 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
     "dpf_expand_levels": [_P] * 12 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
-    "dpf_path_level": [_P] * 8 + [_I64, _I64, _P],
+    "dpf_path_walk": [_P] * 7 + [ctypes.c_int] + [_P] * 2 + [_I64] * 2
+                     + [ctypes.c_int, _P],
     "dpf_leaf_blocks": [_P] * 3 + [_I64] * 3 + [_P],
 }
 

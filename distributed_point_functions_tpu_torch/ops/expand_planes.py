@@ -10,20 +10,24 @@ The counterpart of the JAX package's `ops/expand_planes_pallas.py`.
 * `value_hash` (K3) -- the leaf MMO hash with `RK_VALUE`, XORed with the
   value correction under the control bit. Replaces `_value_kernel`
   (`ops/expand_planes_pallas.py:333`).
-* `walk_descend` (K4) -- r levels at the constant width G0 << r, each
-  column hashing once with the left or right key as its leaf offset
-  says (select-key AES), an optional value hash, leaves in natural
-  order. Replaces `_walk_kernel` (`ops/expand_planes_pallas.py:649`).
+* `walk_descend` (K4) -- r levels below each entry column, leaves in
+  natural order, an optional value hash: the function of r levels at the
+  constant width G0 << r, each column hashing once with the left or right
+  key as its leaf offset says (select-key AES); the kernel walks each
+  subtree's top levels that way and doubles its last ones in shared
+  memory. Replaces `_walk_kernel` (`ops/expand_planes_pallas.py:649`).
 * `expand_tail` (K5) -- the last r doubling levels and the value hash in
   one launch, leaves in the tiled order of `tail_node_permutation`.
   Replaces `_tail_kernel` (`ops/expand_planes_pallas.py:392`).
 * `expand_head` (K6) -- the first r doubling levels over the whole
   narrow width in one launch, doubling order. Replaces `_head_kernel`
   (`ops/expand_planes_pallas.py:453`).
-* `path_level` (K8) -- one path-walk level: each column hashes once with
-  the left or right key as its packed path bit says (select-key AES),
-  then the seed correction, the control bit out of plane 0, and the
-  direction correction of the path's branch. Replaces `_path_kernel`
+* `path_walk` (K8) -- L path-walk levels in one launch: at each level
+  each column hashes once with the left or right key as its packed path
+  bit says (select-key AES), then the seed correction, the control bit
+  out of plane 0, and the direction correction of the path's branch; the
+  states at requested stops come out side by side. `path_level` is its
+  one-level case. Replaces `_path_kernel`
   (`ops/expand_planes_pallas.py:946`).
 * `leaf_blocks` -- leaves plane layout for dense PIR's selection blocks:
   the bit transpose of the leaf values, the exit gather into block order
@@ -40,11 +44,12 @@ fallback from one to the other.
 
 Bound on the H100: 32-bit integer logic. A child of one 32-lane word
 column is a whole bitsliced AES (~32k word ops) against 1.5 KB of state
-traffic. The kernels therefore keep the 128-word state in registers,
-one thread per (child, word column), compile the fixed round keys in,
-and re-read the input column for the MMO feed-forward rather than keep
-sigma live (see the sources for the fused kernels' designs, registers
-and spills).
+traffic. K2, K3, K5 and K6 keep the 128-word state in registers, one
+thread per (child, word column), compile the fixed round keys in, and
+re-read the input column for the MMO feed-forward rather than keep sigma
+live. K4 and K8 split each column's AES over a group of 16 threads
+(`csrc/split_aes.cuh`); K4 doubles a subtree's last levels in shared
+memory (see the sources for the designs, registers and spills).
 
 Per-key corrections stay packed at [16, 8, KG] planes and [KG] words
 (KG = padded keys / 32), one such row per level for K4-K6 ([r, 16, 8,
@@ -53,6 +58,8 @@ lane's correction is at column m % KG.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -417,11 +424,11 @@ def expand_tail(state, ctrl, cwp, cwl, cwr, vc, tile_lanes: int):
 
 
 def path_level_plain(state, ctrl, sel, cwp, cwl, cwr):
-    """Plain version of K8 (the JAX package's `dpf._eval_paths_planes`
-    scan body): sigma, the select-key AES MMO hash (key `RK_RIGHT` where a
-    lane's `sel` bit is 1), the seed correction under the control bit, the
-    control bit out of plane 0 (cleared), then the direction correction of
-    the branch each lane took."""
+    """Plain version of one K8 level (the JAX package's
+    `dpf._eval_paths_planes` scan body): sigma, the select-key AES MMO hash
+    (key `RK_RIGHT` where a lane's `sel` bit is 1), the seed correction
+    under the control bit, the control bit out of plane 0 (cleared), then
+    the direction correction of the branch each lane took."""
     g = state.shape[-1]
     sig = sigma_planes(state)
     h = aes_rounds_select_planes(fixed_keys.RK_LEFT, fixed_keys.RK_RIGHT, sel, sig)
@@ -432,33 +439,85 @@ def path_level_plain(state, ctrl, sel, cwp, cwl, cwr):
     return h, t_new ^ (ctrl & cw_dir)
 
 
-def path_level(state, ctrl, sel, cwp, cwl, cwr):
-    """K8: one path-walk level at constant width.
+def path_walk_plain(state, ctrl, sel, cwp, cwl, cwr, stops):
+    """Plain version of K8's walk: `path_level_plain` once per level, the
+    state and control after `stops[i]` levels side by side."""
+    states, ctrls = [], []
+    for lvl in range(sel.shape[0] + 1):
+        for stop in stops:
+            if stop == lvl:
+                states.append(state)
+                ctrls.append(ctrl)
+        if lvl < sel.shape[0]:
+            state, ctrl = path_level_plain(state, ctrl, sel[lvl], cwp[lvl],
+                                           cwl[lvl], cwr[lvl])
+    return torch.cat(states, dim=-1), torch.cat(ctrls)
+
+
+# Stops one K8 launch takes (`kMaxStops` in csrc/path_level.cu).
+MAX_STOPS = 128
+
+
+def path_walk(state, ctrl, sel, cwp, cwl, cwr, stops=None):
+    """K8: an L-level path walk in one launch.
 
     state: int32[16, 8, G]; ctrl: int32[G] packed control bits; sel:
-    int32[G] packed path bits (1 -> right child); cwp: int32[16, 8, KW]
-    correction planes and cwl / cwr: int32[KW] packed direction words, read
-    at column m % KW. KW = G is the per-seed mode (each lane its own key's
-    corrections, the multi-key engine); KW = 1 with all-ones/all-zeros
-    words (`broadcast_cw_planes`) is one key's shared corrections. Returns
-    (state int32[16, 8, G], ctrl int32[G])."""
-    g, kw = _check_level_args(state, ctrl, cwp, (cwl, cwr))
-    _check_words(sel, "sel", (g,), state.device)
-    if state.device.type == "cpu":
-        return path_level_plain(state, ctrl, sel, cwp, cwl, cwr)
+    int32[L, G] packed path bits of each level (1 -> right child); cwp:
+    int32[L, 16, 8, KW] correction planes and cwl / cwr: int32[L, KW]
+    packed direction words, read at column m % KW. KW = G is the per-seed
+    mode (each lane its own key's corrections, the multi-key engine); KW =
+    1 with all-ones/all-zeros words (`broadcast_cw_planes`) is one key's
+    shared corrections. `stops`: non-decreasing level counts in [0, L]
+    (default: (L,)). Returns (states int32[16, 8, S * G], ctrl int32[S *
+    G]): column s * G + m holds column m after `stops[s]` levels."""
+    if sel.ndim != 2 or cwp.ndim != 4:
+        raise ValueError(
+            f"sel must be [L, G] and cwp [L, 16, 8, KW], got {tuple(sel.shape)} "
+            f"and {tuple(cwp.shape)}")
+    levels = sel.shape[0]
+    g = state.shape[-1] if state.ndim == 3 else -1
+    kw = cwp.shape[-1]
+    stops = (levels,) if stops is None else tuple(int(x) for x in stops)
+    if not 1 <= len(stops) <= MAX_STOPS or any(
+            b < a for a, b in zip((0,) + stops, stops)) or stops[-1] > levels:
+        raise ValueError(
+            f"stops {stops} must be 1 to {MAX_STOPS} non-decreasing level counts in [0, {levels}]")
+    if state.ndim != 3 or tuple(state.shape[:2]) != (16, 8) or kw <= 0 or g % kw:
+        raise ValueError(
+            f"state must be [16, 8, G] with KW {kw} dividing G, got {tuple(state.shape)}")
+    dev = state.device
+    _check_words(state, "state", (16, 8, g), dev)
+    _check_words(ctrl, "ctrl", (g,), dev)
+    _check_words(sel, "sel", (levels, g), dev)
+    _check_words(cwp, "correction planes", (levels, 16, 8, kw), dev)
+    _check_words(cwl, "left correction words", (levels, kw), dev)
+    _check_words(cwr, "right correction words", (levels, kw), dev)
+    if dev.type == "cpu":
+        return path_walk_plain(state, ctrl, sel, cwp, cwl, cwr, stops)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     lib = cuda_lib.library()
-    out = torch.empty((16, 8, g), dtype=torch.int32, device=state.device)
-    out_ctrl = torch.empty((g,), dtype=torch.int32, device=state.device)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = lib.dpf_path_level(
+    out = torch.empty((16, 8, len(stops) * g), dtype=torch.int32, device=dev)
+    out_ctrl = torch.empty((len(stops) * g,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dpf_path_walk(
             state.data_ptr(), ctrl.data_ptr(), sel.data_ptr(), cwp.data_ptr(),
-            cwl.data_ptr(), cwr.data_ptr(), out.data_ptr(), out_ctrl.data_ptr(),
-            g, kw, stream,
+            cwl.data_ptr(), cwr.data_ptr(), (ctypes.c_int * len(stops))(*stops),
+            len(stops), out.data_ptr(), out_ctrl.data_ptr(), g, kw, levels, stream,
         )
     cuda_lib.LAUNCHES["path_level"] += 1
     cuda_lib.check(err, "path_level")
     return out, out_ctrl
+
+
+def path_level(state, ctrl, sel, cwp, cwl, cwr):
+    """K8: one path-walk level, the L = 1 walk (`path_walk`).
+
+    state: int32[16, 8, G]; ctrl: int32[G]; sel: int32[G] packed path
+    bits; cwp: int32[16, 8, KW]; cwl / cwr: int32[KW]. Returns (state
+    int32[16, 8, G], ctrl int32[G])."""
+    return path_walk(state, ctrl, sel[None], cwp[None], cwl[None], cwr[None])
 
 
 def leaf_blocks_plain(values, node_block, num_blocks: int):

@@ -8,10 +8,16 @@ Nothing in the header is written by hand:
   constants folded and common subexpressions shared;
 * AddRoundKey is compiled in: for each fixed key (`keys.py`) and round,
   a set key bit flips its plane (`~`), a clear bit does nothing;
-* the select-key AddRoundKey of the walk descent composes each plane's
-  key bit from the left/right pair and a per-lane select word;
+* the select-key AddRoundKey composes each plane's key bit from the
+  left/right pair and a per-lane select word (the one-thread select-key
+  AES whose instructions `chip_smoke.py` counts for K8's bound);
 * ShiftRows+MixColumns follow `aes_bitslice._mix_columns_planes` plane
-  for plane.
+  for plane;
+* the pieces of the split AES (`csrc/split_aes.cuh`, one 32-lane column
+  shared by a group of 16 threads, a state byte each): `shift_rows_source`
+  (the byte a ShiftRows position takes), `mix_byte` (one output byte of
+  MixColumns from the shifted byte and two exchanged pair sums) and the
+  round-key bytes `kRoundKeyBytes` the groups expand into plane masks.
 
 Regenerate (and commit) after touching any of those:
 
@@ -302,6 +308,60 @@ def _render_round_keys_select() -> list:
     return lines
 
 
+def _render_split_pieces() -> list:
+    """The split AES's per-byte pieces. Byte 4c + r of the shifted state is
+    input byte `shift_rows_source(4c + r)`; a 16-thread group's thread
+    4c + r holds a = that byte, v = a ^ a_{r+1} and v2 = the v of row
+    r + 2, so t = v ^ v2 and o_r = a ^ t ^ xtime(v)."""
+    sr = [int(v) for v in _aes._SHIFT_ROWS]
+    if any(sr[k] != (k & 3) + 4 * (((k >> 2) + (k & 3)) & 3) for k in range(16)):
+        raise AssertionError("ShiftRows is not r + 4 * ((c + r) % 4)")
+    lines = [
+        "// ShiftRows: position k = 4c + r of the shifted state takes input byte",
+        "// r + 4 * ((c + r) % 4).",
+        "__device__ __forceinline__ int shift_rows_source(int k) {",
+        "  return (k & 3) + 4 * (((k >> 2) + (k & 3)) & 3);",
+        "}",
+        "",
+        "// One MixColumns output byte (8 planes) from its shifted byte a, the",
+        "// pair sum v = a ^ a_{r+1} and the pair sum v2 = a_{r+2} ^ a_{r+3}.",
+        "__device__ __forceinline__ void mix_byte(const uint32_t (&a)[8], "
+        "const uint32_t (&v)[8], const uint32_t (&v2)[8], uint32_t (&o)[8]) {",
+    ]
+    for b in range(8):
+        xt = "v[7]" if b == 0 else f"v[{b - 1}]"
+        if b in _XTIME_TAPS:
+            xt = f"{xt} ^ v[7]"
+        lines.append(f"  o[{b}] = a[{b}] ^ v[{b}] ^ v2[{b}] ^ {xt};")
+    lines.append("}")
+    return lines
+
+
+def _render_round_key_bytes() -> list:
+    """The round keys of `ROUND_KEYS` as bytes [key][round][byte], which the
+    split AES expands into plane masks in shared memory (its threads hold
+    different bytes, so the key bits cannot be compiled in). Device
+    memory, not constant memory: a warp reads several bytes at once, which
+    constant memory would serialise."""
+    lines = [
+        "// Round-key bytes [key id][round][byte] of kKeyLeft, kKeyRight, kKeyValue.",
+        "#ifdef __CUDACC__",
+        "#define DPF_KEY_TABLE static __device__ const",
+        "#else",
+        "#define DPF_KEY_TABLE static const",
+        "#endif",
+        f"DPF_KEY_TABLE uint8_t kRoundKeyBytes[{len(ROUND_KEYS)}][11][16] = {{",
+    ]
+    for _, rk in ROUND_KEYS:
+        rows = np.asarray(rk, dtype=np.uint8).reshape(11, 16)
+        lines.append("  {")
+        for row in rows:
+            lines.append("    {" + ", ".join(str(int(x)) for x in row) + "},")
+        lines.append("  },")
+    lines.append("};")
+    return lines
+
+
 def render_header() -> str:
     net, outputs = sbox_circuit()
     parts = [
@@ -319,6 +379,8 @@ def render_header() -> str:
         _render_shift_rows_mix_columns(),
         _render_round_keys(),
         _render_round_keys_select(),
+        _render_split_pieces(),
+        _render_round_key_bytes(),
     ]
     return "\n\n".join("\n".join(p) for p in parts) + "\n"
 

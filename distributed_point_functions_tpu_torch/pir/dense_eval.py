@@ -25,7 +25,7 @@ from .. import keys as fixed_keys
 from ..device import resolve_device
 from ..dpf import DpfKey
 from ..ops import aes
-from ..ops.expand_planes import leaf_blocks, path_level
+from ..ops.expand_planes import leaf_blocks, path_walk
 from ..ops.inner_product_kernels import xor_inner_product_accumulate
 from ..ops.words import to_tensors
 from .dense_eval_planes import (
@@ -121,9 +121,10 @@ def chunked_pir_inner_products(
     at a time, so only one chunk's selections are ever live (the JAX
     package's `chunked_pir_inner_products`).
 
-    For chunk c: walk the chunk root's path, bit j of c MSB first, through
-    K8 (`path_level`, every key on the same branch, so its select words
-    are all-ones or all-zeros, with each key's own corrections); expand its
+    For chunk c: walk the chunk root's path, bit j of c MSB first, in one
+    K8 launch (`path_walk`, every key on the same branch, so its select
+    words are all-ones or all-zeros, with each key's own corrections);
+    expand its
     subtree `chunk_expand_levels` levels in `mode`
     (`dense_eval_planes.expand_planned`) and write its leaves out as
     selection blocks in natural order (`leaf_blocks`); XOR them into the
@@ -155,14 +156,18 @@ def chunked_pir_inner_products(
     plan = expansion_plan(mode, kg, cel)
     node_block = torch.from_numpy(
         exit_node_blocks(cel, *plan, mode == "walk", 1 << cel)).to(dev)
-    branch = (torch.zeros(kg, dtype=torch.int32, device=dev),
-              torch.full((kg,), -1, dtype=torch.int32, device=dev))
+    # Chunk c's path select words, level j: bit j of c (MSB first), the
+    # same for every key (all-zeros or all-ones words).
+    chunks = torch.arange(num_chunks, dtype=torch.int32, device=dev)[:, None]
+    shifts = torch.arange(chunk_bits - 1, -1, -1, dtype=torch.int32, device=dev)
+    path_sel = (-((chunks >> shifts) & 1))[:, :, None].expand(
+        num_chunks, chunk_bits, kg).contiguous()
     acc = torch.zeros((32 * kg, db_perm.shape[2]), dtype=torch.int32, device=dev)
     for c in range(num_chunks):
         s, t = state, ctrl
-        for j in range(chunk_bits):
-            bit = (c >> (chunk_bits - 1 - j)) & 1
-            s, t = path_level(s, t, branch[bit], cwp[j], cwl[j], cwr[j])
+        if chunk_bits:
+            s, t = path_walk(s, t, path_sel[c], cwp[:chunk_bits], cwl[:chunk_bits],
+                             cwr[:chunk_bits])
         values = expand_planned(
             s, t, cwp[chunk_bits:], cwl[chunk_bits:], cwr[chunk_bits:], vc,
             mode=mode, plan=plan, node_lanes=kg)[0]
