@@ -20,8 +20,10 @@ non-zero before printing a result. Phases, one JSON line each:
    (a level: the select-key AES, sigma, the corrections and the control,
    what a caller's walk pays a level).
 3. `kernel`: every kernel at the main path's shapes (2^20 x 256 B
-   records, 128 queries, 13 expansion levels): K2 `expand_level` (its 13
-   levels summed; `level_ms` and `level_bound_ms` give each), K3
+   records, 128 queries, 13 expansion levels): K2 `expand_level` (one
+   line per level, `level` and `G`, then the 13 summed; `level_ms` and
+   `level_bound_ms` give each; every K2 line with its registers and
+   spills), K3
    `value_hash`, K1 `xor_inner_product`, K4 `walk_descend` (one line per
    phase of walk mode: head 4 -> 2,048 word columns over 9 levels, tail
    2,048 -> 32,768 over 4 levels with the value hash), K6 `expand_head`
@@ -120,12 +122,16 @@ non-zero before printing a result. Phases, one JSON line each:
      for one streaming or chunked chunk's 10 levels from one node's 32
      columns, and for the DPF full domain's 14 plane levels (configs[0],
      one key word), K2 at every width from 32 to 32,768 columns (the
-     streaming cut state's and the materialized tier's middle levels),
-     each `torch.equal` to its plain version;
+     streaming cut state's 5 levels, marked `streaming_cut`, and the
+     materialized tier's middle levels), each `torch.equal` to its plain
+     version;
    - `kernel` lines for `leaf_blocks` (the leaf values out of plane
-     layout into selection blocks, in the expansion's exit order: at the
-     main path's 8,192 blocks, the materialized tier's 32,768 and one
-     chunk's 1,024), each `torch.equal` to its plain version;
+     layout into selection blocks, in the expansion's exit order, with the
+     cached block -> node map the serving paths pass: at the main path's
+     8,192 blocks in the walk plan's order and in the level plan's
+     bit-reversed one, the materialized tier's 32,768 and one chunk's
+     1,024), each `torch.equal` to its plain version, with registers and
+     spills;
    - `probe`: `interpret_repeat_tiles` on the card (one K9 launch) says
      the kernel tiles like Mosaic;
    - `main_path_v1`: the main path's database built with
@@ -177,9 +183,12 @@ NUM_QUERIES = 128
 TIER_RECORDS = 1 << 22
 TIER_QUERIES = 1024
 TIER_BUDGET = 64 << 20
-# The chunk levels of both 64 MiB plans (the tier phase checks its plans
-# against it): the kernel lines at the tiers' shapes use it.
+# The chunk levels and the cut (the streaming tier's K2 levels before its
+# scan, the chunked tier's path bits) of both 64 MiB plans (the tier phase
+# checks its plans against them): the kernel lines at the tiers' shapes
+# use them.
 TIER_CHUNK_LEVELS = 10
+TIER_CUT_LEVELS = 5
 # int8 tensor-core rate of an H100 SXM (dense, at 700 W): the rate of a
 # count product of 0/1 operands as int8 (K1, its accumulate entry, K7).
 INT8_OPS_PER_S = 1.979e15
@@ -763,6 +772,13 @@ def ptxas_of(table: dict, kernel: str) -> dict:
     return next(v for k, v in table.items() if kernel in k)
 
 
+def leaf_kernel(key_groups: int) -> str:
+    """The mangled-name part of the `leaf_blocks` kernel that a KG takes
+    (`tile_cols` in csrc/leaf_blocks.cu: 64 word columns a tile from KG =
+    32, else 32)."""
+    return f"leaf_blocks_kernelILi{64 if key_groups >= 32 else 32}E"
+
+
 def unpack_operands(db_perm, packed):
     """The 0/1 int8 operands of the count product: selections [nq, 32G]
     and database bits [32G, 32W], records in (b, g) order, columns in
@@ -888,7 +904,8 @@ def tiers_phase(rng, dev) -> dict:
         server = DenseDpfPirServer.create_plain(db)
         plan = server._plan_serving(TIER_QUERIES)
         if plan.mode != tier or (tier != "materialized"
-                                 and plan.chunk_levels != TIER_CHUNK_LEVELS):
+                                 and (plan.chunk_levels, plan.cut_levels)
+                                 != (TIER_CHUNK_LEVELS, TIER_CUT_LEVELS)):
             raise AssertionError(f"tier {tier}: the planner chose {plan}")
         t0 = time.perf_counter()
         serve(server)  # warm-up, and the tier's staging
@@ -980,11 +997,11 @@ def main() -> int:
         DEFAULT_EXPANSION,
         EXPANSION_MODES,
         evaluate_selection_blocks_planes,
-        exit_node_blocks,
+        exit_block_nodes,
         expansion_plan,
     )
     from distributed_point_functions_tpu_torch.pir.dense_eval_planes_v2 import (
-        chunk_node_blocks,
+        chunk_block_nodes,
     )
 
     dev = torch.device("cuda", 0)
@@ -1111,13 +1128,17 @@ def main() -> int:
             f"expand_level G={g}", lambda: ep.expand_level(*args),
             lambda: ep.expand_level_plain(*args), 2 * g * child_ops,
             4 * (128 * g + g + 128 * kg + 2 * kg + 2 * 128 * g + 2 * g)))
+    k2_ptxas = ptxas_of(ptxas, "expand_level_kernel")
+    for i, part in enumerate(levels):
+        emit({"phase": "kernel", "name": "expand_level", "level": i, "KG": kg,
+              "G": kg << i, "launches_per_batch": 1, **part, "ptxas": k2_ptxas})
     k2 = add_up(levels)
     k2["level_ms"] = [lv["ms"] for lv in levels]
     k2["level_device_ms"] = [lv["device_ms"] for lv in levels]
     k2["level_bound_ms"] = [lv["bound_ms"] for lv in levels]
     results["expand_level"] = k2
     emit({"phase": "kernel", "name": "expand_level", "levels": expand_levels,
-          "launches_per_batch": expand_levels, **k2})
+          "launches_per_batch": expand_levels, **k2, "ptxas": k2_ptxas})
 
     # K3: the leaf value hash at width KG * 2^levels.
     g = kg << expand_levels
@@ -1179,6 +1200,7 @@ def main() -> int:
                   "W": g0 << r, "value_hash": vh, **part,
                   **split_info("walk_descend_kernel")})
     _, tail, _ = expansion_plan("walk", tier_kg, tier_levels)
+    # The streaming tier's cut state: its first TIER_CUT_LEVELS K2 levels.
     for i in range(tier_levels - tail):  # every K2 input width of both tiers
         g = tier_kg << i
         args = (rand_words(16, 8, g), rand_words(g), rand_words(16, 8, tier_kg),
@@ -1190,37 +1212,45 @@ def main() -> int:
             plain_reps=1)
         results["expand_level"]["err"] = max(results["expand_level"]["err"], part["err"])
         emit({"phase": "kernel", "name": "expand_level", "tier_shape": True,
-              "KG": tier_kg, "G": g, **part})
+              "streaming_cut": i < TIER_CUT_LEVELS, "level": i, "KG": tier_kg, "G": g,
+              **part, "ptxas": k2_ptxas})
 
     # leaf_blocks: leaf values out of plane layout into selection blocks,
     # in the exit order of the main path's walk plan (8,192 blocks of 128
-    # keys), of the materialized tier's (32,768 blocks of 1,024 keys) and
-    # of one streaming chunk (1,024 blocks, bit-reversed). Bytes bound it:
-    # the planes read once, the blocks written once; a 32x32 bit transpose
-    # is 480 word operations (five rounds of 16 six-operation swaps).
-    for label, key_groups, levels, node_block in (
-            ("main", kg, expand_levels,
-             exit_node_blocks(expand_levels, *plans["walk"], True, 1 << expand_levels)),
-            ("materialized", tier_kg, tier_levels,
-             exit_node_blocks(tier_levels, *expansion_plan("walk", tier_kg, tier_levels),
-                              True, 1 << tier_levels)),
+    # keys) and of its level plan (bit-reversed: tail and level modes), of
+    # the materialized tier's (32,768 blocks of 1,024 keys) and of one
+    # streaming chunk (1,024 blocks, bit-reversed), each with the cached
+    # block -> node map that the serving path passes. Bytes bound it: each
+    # plane word and each block's node read once, each selection word
+    # written once (zero blocks included); a 32x32 bit transpose is 480
+    # word operations (five rounds of 16 six-operation swaps).
+    def exit_map(levels, key_groups, mode):
+        plan = expansion_plan(mode, key_groups, levels)
+        return exit_block_nodes(levels, *plan, mode == "walk", 1 << levels)
+
+    for label, key_groups, levels, block_node in (
+            ("main", kg, expand_levels, exit_map(expand_levels, kg, "walk")),
+            ("main_bit_reversed", kg, expand_levels, exit_map(expand_levels, kg, "level")),
+            ("materialized", tier_kg, tier_levels, exit_map(tier_levels, tier_kg, "walk")),
             ("chunk", tier_kg, TIER_CHUNK_LEVELS,
-             chunk_node_blocks(TIER_CHUNK_LEVELS,
-                                expansion_plan("walk", tier_kg, TIER_CHUNK_LEVELS), True))):
-        nodes = 1 << levels
-        g = key_groups * nodes
+             chunk_block_nodes(TIER_CHUNK_LEVELS,
+                               expansion_plan("walk", tier_kg, TIER_CHUNK_LEVELS), True))):
+        num_blocks = 1 << levels
+        g = key_groups * num_blocks
         values = rand_words(16, 8, g)
-        node_block = torch.from_numpy(node_block).to(dev)
+        block_node = torch.from_numpy(block_node).to(dev)
+        node_block = ep.node_blocks(block_node, num_blocks)
         part = measure(
-            f"leaf_blocks {label}", lambda: ep.leaf_blocks(values, node_block, nodes),
-            lambda: ep.leaf_blocks_plain(values, node_block, nodes), 4 * 480 * g,
-            4 * (128 * g + nodes) + 16 * 32 * key_groups * nodes)
+            f"leaf_blocks {label}",
+            lambda: ep.leaf_blocks(values, block_node, key_groups),
+            lambda: ep.leaf_blocks_plain(values, node_block, num_blocks), 4 * 480 * g,
+            4 * (128 * g + num_blocks) + 16 * 32 * key_groups * num_blocks)
         if label == "main":
             results["leaf_blocks"] = part
         else:
             results["leaf_blocks"]["err"] = max(results["leaf_blocks"]["err"], part["err"])
         emit({"phase": "kernel", "name": "leaf_blocks", "shape": label, "KG": key_groups,
-              "nodes": nodes, **part})
+              "blocks": num_blocks, **part, "ptxas": ptxas_of(ptxas, leaf_kernel(key_groups))})
     del values
 
     # K6 and K5: tail mode's head and tiled tail.
@@ -1298,7 +1328,7 @@ def main() -> int:
         raise AssertionError("xor_inner_product: the parity of the int8 product differs")
     results["xor_inner_product"].update(lib, **tensor_rate(results["xor_inner_product"]),
                                         ptxas=ptxas_of(ptxas, "xor_ip_kernel"))
-    results["leaf_blocks"]["ptxas"] = ptxas_of(ptxas, "leaf_blocks_kernel")
+    results["leaf_blocks"]["ptxas"] = ptxas_of(ptxas, leaf_kernel(kg))
     emit({"phase": "kernel", "name": "xor_inner_product",
           "shape": [NUM_QUERIES, NUM_RECORDS, words],
           "launches_per_batch": 1, **results["xor_inner_product"]})

@@ -31,9 +31,10 @@ The counterpart of the JAX package's `ops/expand_planes_pallas.py`.
   (`ops/expand_planes_pallas.py:946`).
 * `leaf_blocks` -- leaves plane layout for dense PIR's selection blocks:
   the bit transpose of the leaf values, the exit gather into block order
-  and the key-major transpose in one pass (`csrc/leaf_blocks.cu`). It has
-  no TPU kernel; the JAX package does the same in XLA. One pass keeps the
-  leaf values and the selections the only selection-sized buffers alive.
+  and the key-major transpose in one pass (`csrc/leaf_blocks.cu`), driven
+  by the block -> node map that callers cache per shape. It has no TPU
+  kernel; the JAX package does the same in XLA. One pass keeps the leaf
+  values and the selections the only selection-sized buffers alive.
 
 For a CPU tensor each wrapper runs its plain PyTorch version (the
 `*_plain` functions, built on `aes_bitslice.py`: K4-K6 are K2's level and
@@ -44,12 +45,13 @@ fallback from one to the other.
 
 Bound on the H100: 32-bit integer logic. A child of one 32-lane word
 column is a whole bitsliced AES (~32k word ops) against 1.5 KB of state
-traffic. K2, K3, K5 and K6 keep the 128-word state in registers, one
-thread per (child, word column), compile the fixed round keys in, and
-re-read the input column for the MMO feed-forward rather than keep sigma
-live. K4 and K8 split each column's AES over a group of 16 threads
-(`csrc/split_aes.cuh`); K4 doubles a subtree's last levels in shared
-memory (see the sources for the designs, registers and spills).
+traffic. K3, K5 and K6 keep the 128-word state in registers, one thread
+per (child, word column), compile the fixed round keys in, and re-read
+the input column for the MMO feed-forward rather than keep sigma live.
+K2, K4 and K8 split each column's AES over a group of 16 threads
+(`csrc/split_aes.cuh`); K2 gives each child its own group, K4 doubles a
+subtree's last levels in shared memory (see the sources for the designs,
+registers and spills). `leaf_blocks` is bound by bytes.
 
 Per-key corrections stay packed at [16, 8, KG] planes and [KG] words
 (KG = padded keys / 32), one such row per level for K4-K6 ([r, 16, 8,
@@ -533,32 +535,44 @@ def leaf_blocks_plain(values, node_block, num_blocks: int):
     return out
 
 
-def leaf_blocks(values, node_block, num_blocks: int):
+def node_blocks(block_node, nodes: int):
+    """The inverse of a block -> node map: the block that each of `nodes`
+    nodes holds, -1 where none (`leaf_blocks_plain`'s node_block)."""
+    held = (block_node >= 0) & (block_node < nodes)
+    out = torch.full((nodes,), -1, dtype=torch.int32, device=block_node.device)
+    out[block_node[held].long()] = torch.nonzero(held).flatten().to(torch.int32)
+    return out
+
+
+def leaf_blocks(values, block_node, key_groups: int):
     """Selection blocks of an expansion's leaf values.
 
-    values: int32[16, 8, G] leaf planes, node-major (G = nodes * KG);
-    node_block: int32[nodes], the natural block that node n's leaves hold
-    (a node whose block is negative or not below `num_blocks` is dropped);
-    a block that no node holds selects nothing. Returns int32[32 KG, num_blocks, 4]
+    values: int32[16, 8, G] leaf planes, node-major (G = nodes *
+    key_groups); block_node: int32[B], the node whose leaves block b
+    holds, -1 (or any value outside the nodes) for a block that selects
+    nothing, each node at most once: the inverse of the expansion's exit
+    order, which callers cache per shape. Returns int32[32 KG, B, 4]
     key-major."""
     if values.ndim != 3 or tuple(values.shape[:2]) != (16, 8):
         raise ValueError(f"values must be [16, 8, G], got {tuple(values.shape)}")
     g = values.shape[-1]
-    nodes = node_block.shape[0] if node_block.ndim == 1 else 0
-    if nodes <= 0 or g % nodes:
-        raise ValueError(f"node_block of {nodes} nodes must divide the width {g}")
+    if key_groups <= 0 or g % key_groups:
+        raise ValueError(f"{key_groups} key groups must divide the width {g}")
+    num_blocks = block_node.shape[0] if block_node.ndim == 1 else -1
     dev = values.device
     _check_words(values, "values", (16, 8, g), dev)
-    _check_words(node_block, "node_block", (nodes,), dev)
+    _check_words(block_node, "block_node", (num_blocks,), dev)
     if dev.type == "cpu":
-        return leaf_blocks_plain(values, node_block, num_blocks)
-    kg = g // nodes
-    out = torch.zeros((32 * kg, num_blocks, 4), dtype=torch.int32, device=dev)
+        return leaf_blocks_plain(values, node_blocks(block_node, g // key_groups),
+                                 num_blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((32 * key_groups, num_blocks, 4), dtype=torch.int32, device=dev)
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dpf_leaf_blocks(values.data_ptr(), node_block.data_ptr(),
-                                  out.data_ptr(), g, kg, num_blocks, stream)
+        err = lib.dpf_leaf_blocks(values.data_ptr(), block_node.data_ptr(),
+                                  out.data_ptr(), g, key_groups, num_blocks, stream)
     cuda_lib.LAUNCHES["leaf_blocks"] += 1
     cuda_lib.check(err, "leaf_blocks")
     return out

@@ -30,7 +30,7 @@ from ..ops.inner_product_kernels import xor_inner_product_accumulate
 from ..ops.words import to_tensors
 from .dense_eval_planes import (
     DEFAULT_EXPANSION,
-    exit_node_blocks,
+    exit_block_nodes,
     expand_planned,
     expansion_plan,
     pack_key_batch,
@@ -154,8 +154,8 @@ def chunked_pir_inner_products(
     kg = ctrl.shape[0]
     dev = state.device
     plan = expansion_plan(mode, kg, cel)
-    node_block = torch.from_numpy(
-        exit_node_blocks(cel, *plan, mode == "walk", 1 << cel)).to(dev)
+    block_node = torch.from_numpy(
+        exit_block_nodes(cel, *plan, mode == "walk", 1 << cel)).to(dev)
     # Chunk c's path select words, level j: bit j of c (MSB first), the
     # same for every key (all-zeros or all-ones words).
     chunks = torch.arange(num_chunks, dtype=torch.int32, device=dev)[:, None]
@@ -173,7 +173,7 @@ def chunked_pir_inner_products(
             mode=mode, plan=plan, node_lanes=kg)[0]
         # Free each buffer once used: a chunk's leaf values and its
         # selections are what the capacity model counts.
-        sel = leaf_blocks(values, node_block, 1 << cel)
+        sel = leaf_blocks(values, block_node, kg)
         del values
         xor_inner_product_accumulate(acc, db_perm[:, c * span:(c + 1) * span], sel)
         del sel

@@ -180,22 +180,16 @@ def exit_permutation(expand_levels: int, head: int, tail: int,
     return np.argsort(order)[:num_blocks]
 
 
-def node_blocks(gather: np.ndarray, nodes: int) -> np.ndarray:
-    """The inverse of an exit gather over `nodes` leaf positions: the
-    block each position holds (gather[block] = position), -1 where none
-    (`ops.expand_planes.leaf_blocks`'s `node_block`)."""
-    out = np.full(nodes, -1, dtype=np.int32)
-    out[gather] = np.arange(len(gather), dtype=np.int32)
-    return out
-
-
 @functools.lru_cache(maxsize=64)
-def exit_node_blocks(expand_levels: int, head: int, tail: int, tile_nodes: int,
+def exit_block_nodes(expand_levels: int, head: int, tail: int, tile_nodes: int,
                      walk: bool, num_blocks: int) -> np.ndarray:
-    """`node_blocks` of a plan's `exit_permutation`."""
-    return node_blocks(
-        exit_permutation(expand_levels, head, tail, tile_nodes, walk, num_blocks),
-        1 << expand_levels)
+    """A plan's exit gather as `leaf_blocks`' block_node: the leaf position
+    that holds each of `num_blocks` blocks (`exit_permutation`), -1 past
+    the tree."""
+    gather = exit_permutation(expand_levels, head, tail, tile_nodes, walk, num_blocks)
+    out = np.full(num_blocks, -1, dtype=np.int32)
+    out[:len(gather)] = gather
+    return out
 
 
 def pack_key_batch(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
@@ -284,9 +278,9 @@ def evaluate_planned(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
 
     # Leave plane space once, into block order: int32[nkp, num_blocks, 4]
     # (blocks beyond the tree's capacity select nothing).
-    node_block = exit_node_blocks(levels, *plan, mode == "walk", num_blocks)
-    return leaf_blocks(values, torch.from_numpy(node_block).to(values.device),
-                       num_blocks)[:nk]
+    block_node = torch.from_numpy(
+        exit_block_nodes(levels, *plan, mode == "walk", num_blocks)).to(values.device)
+    return leaf_blocks(values, block_node, kg)[:nk]
 
 
 def expand_planned(state, ctrl, cwp, cwl, cwr, vc, *, mode: str, plan: tuple,

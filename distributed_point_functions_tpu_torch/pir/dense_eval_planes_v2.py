@@ -17,7 +17,7 @@ holds natural prefix bitrev_cut(c) (the JAX package's order: K2 appends
 node is the contiguous word columns [c * KG, (c + 1) * KG), so a chunk is a
 slice of the cut state. Its expansion leaves its leaves in the plan's
 composed order; `leaf_blocks` (one launch per chunk, its node order fixed
-per shape by `chunk_node_blocks`) writes them out as selection blocks in
+per shape by `chunk_block_nodes`) writes them out as selection blocks in
 single-subtree doubling order, so that scan step c covers
 natural blocks (bitrev_cut(c) << r) | bitrev_r(q), q = 0 .. 2^r - 1, as
 in the JAX package. The database is staged once in that blocked
@@ -43,7 +43,6 @@ from .dense_eval_planes import (
     exit_permutation,
     expand_planned,
     expansion_plan,
-    node_blocks,
     pack_key_batch,
 )
 
@@ -99,24 +98,25 @@ def streaming_cut_state(state, ctrl, cwp, cwl, cwr, *, cut_levels: int):
 
 
 @functools.lru_cache(maxsize=64)
-def chunk_node_blocks(chunk_levels: int, plan: tuple, walk: bool) -> np.ndarray:
-    """For each leaf of a streaming chunk's expansion (in `plan`'s order),
-    its row block q: the leaf is natural sub-leaf bitrev_r(q)."""
+def chunk_block_nodes(chunk_levels: int, plan: tuple, walk: bool) -> np.ndarray:
+    """For each row block q of a streaming chunk, the leaf of the chunk's
+    expansion (in `plan`'s order) that holds it, natural sub-leaf
+    bitrev_r(q) (`leaf_blocks`' block_node)."""
     perm = exit_permutation(chunk_levels, *plan, walk, 1 << chunk_levels)
-    return node_blocks(perm[bitrev_permutation(chunk_levels)], 1 << chunk_levels)
+    return perm[bitrev_permutation(chunk_levels)].astype(np.int32)
 
 
 def streaming_tail_selections(state, ctrl, tail_cwp, tail_cwl, tail_cwr, vc,
-                              *, mode: str, plan: tuple, node_block: torch.Tensor):
+                              *, mode: str, plan: tuple, block_node: torch.Tensor):
     """Finish one tail subtree from its slice of the cut state and return
     its selection blocks. state int32[16, 8, KG], ctrl int32[KG]; tail_*
     the last r levels' packed corrections; `plan` = expansion_plan(mode, KG,
-    r) and `node_block` its `chunk_node_blocks`. Returns int32[32 KG, 2^r,
+    r) and `block_node` its `chunk_block_nodes`. Returns int32[32 KG, 2^r,
     4] in single-subtree doubling (bit-reversed) leaf order."""
     kg = ctrl.shape[0]
     values = expand_planned(state, ctrl, tail_cwp, tail_cwl, tail_cwr, vc,
                             mode=mode, plan=plan, node_lanes=kg)[0]
-    return leaf_blocks(values, node_block, node_block.shape[0])
+    return leaf_blocks(values, block_node, kg)
 
 
 def streaming_scan_accumulate(state, ctrl, db_chunks, tail_cwp, tail_cwl,
@@ -134,15 +134,14 @@ def streaming_scan_accumulate(state, ctrl, db_chunks, tail_cwp, tail_cwl,
         )
     r = tail_cwp.shape[0]
     plan = expansion_plan(mode, kg, r)
-    node_block = torch.from_numpy(
-        chunk_node_blocks(r, plan, mode == "walk")).to(state.device)
+    block_node = torch.from_numpy(chunk_block_nodes(r, plan, mode == "walk")).to(state.device)
     acc = torch.zeros((32 * kg, db_chunks.shape[-1]), dtype=torch.int32,
                       device=state.device)
     for c in range(num_chunks):
         cols = slice(c * kg, (c + 1) * kg)
         sel = streaming_tail_selections(
             state[..., cols].contiguous(), ctrl[cols].contiguous(), tail_cwp,
-            tail_cwl, tail_cwr, vc, mode=mode, plan=plan, node_block=node_block)
+            tail_cwl, tail_cwr, vc, mode=mode, plan=plan, block_node=block_node)
         xor_inner_product_accumulate(acc, db_chunks[c], sel)
         del sel  # the next chunk's leaf values take its place
     return acc

@@ -37,7 +37,11 @@ def _words(rng, shape, device):
     return to_tensor(rng.integers(0, 1 << 32, shape, dtype=np.uint32), device)
 
 
-@pytest.mark.parametrize("g,kg", [(1, 1), (3, 1), (96, 3), (200, 4)])
+# K2 takes 4 input columns a tile (128 threads, a group of 16 a child) and
+# walks the tiles grid-stride: widths below, at and past one tile, and
+# 8,192 columns, past the tiles the card holds at once.
+@pytest.mark.parametrize("g,kg", [(1, 1), (3, 1), (96, 3), (200, 4), (2, 2), (4, 4),
+                                  (5, 1), (36, 4), (8192, 32)])
 def test_expand_level_matches_plain(dev, g, kg):
     rng = np.random.default_rng(g)
     args = [_words(rng, s, dev) for s in ((16, 8, g), (g,), (16, 8, kg), (kg,), (kg,))]

@@ -74,21 +74,72 @@ def test_repeat_tiles_matches_plain(dev, rows, n, factor):
     assert ipk.interpret_repeat_tiles(dev) is True
 
 
+# A tile holds T blocks: 32 at KG = 1, 8 at KG = 4, 2 at KG = 32; block
+# counts below, at and past one tile, ragged ones, and KG past a tile's 32
+# key groups.
 @pytest.mark.parametrize("kg,nodes,num_blocks", [(1, 2, 2), (3, 16, 11), (32, 64, 64),
-                                                  (4, 8, 12)])
+                                                  (4, 8, 12), (4, 64, 7), (4, 64, 8),
+                                                  (4, 64, 9), (1, 64, 32), (1, 64, 33),
+                                                  (32, 8, 3), (33, 4, 4), (8, 100, 101)])
 def test_leaf_blocks_matches_plain(dev, kg, nodes, num_blocks):
     rng = np.random.default_rng(nodes)
     values = _words(rng, (16, 8, kg * nodes), dev)
     node_block = np.full(nodes, -1, dtype=np.int32)
     kept = min(nodes, num_blocks)
     node_block[rng.permutation(nodes)[:kept]] = np.arange(kept, dtype=np.int32)
+    block_node = np.full(num_blocks, -1, dtype=np.int32)
+    block_node[node_block[node_block >= 0]] = np.flatnonzero(node_block >= 0)
     node_block = torch.from_numpy(node_block).to(dev)
+    block_node = torch.from_numpy(block_node).to(dev)
     before = cuda_lib.LAUNCHES["leaf_blocks"]
-    got = ep.leaf_blocks(values, node_block, num_blocks)
+    got = ep.leaf_blocks(values, block_node, kg)
     assert cuda_lib.LAUNCHES["leaf_blocks"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, ep.leaf_blocks_plain(values, node_block, num_blocks))
-    assert torch.equal(got.cpu(), ep.leaf_blocks(values.cpu(), node_block.cpu(), num_blocks))
+    assert torch.equal(got.cpu(), ep.leaf_blocks(values.cpu(), block_node.cpu(), kg))
+    assert torch.equal(_leaf_blocks_poisoned(values, block_node, kg, num_blocks), got)
+
+
+def _leaf_blocks_poisoned(values, block_node, kg, num_blocks):
+    """The kernel straight from the library into a buffer of 0xAAAAAAAA
+    words, so a word it leaves unwritten shows."""
+    out = torch.full((32 * kg, num_blocks, 4), -0x55555556, dtype=torch.int32,
+                     device=values.device)
+    err = cuda_lib.library().dpf_leaf_blocks(
+        values.data_ptr(), block_node.data_ptr(), out.data_ptr(), values.shape[-1], kg,
+        num_blocks, torch.cuda.current_stream(values.device).cuda_stream)
+    cuda_lib.check(err, "leaf_blocks")
+    return out
+
+
+# The exit orders the serving paths pass, with their cached block -> node
+# maps: a streaming chunk's (bit-reversed) and the level plan's
+# (bit-reversed, with blocks past the tree).
+@pytest.mark.parametrize("kg,levels,order,num_blocks", [
+    (32, 5, "chunk", 32), (32, 10, "chunk", 1024), (4, 6, "level", 64),
+    (4, 6, "level", 80), (1, 7, "level", 100)])
+def test_leaf_blocks_writes_every_word_in_exit_orders(dev, kg, levels, order, num_blocks):
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
+        exit_block_nodes,
+        expansion_plan,
+    )
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes_v2 import (
+        chunk_block_nodes,
+    )
+
+    if order == "chunk":
+        block_node = chunk_block_nodes(levels, expansion_plan("walk", kg, levels), True)
+    else:
+        block_node = exit_block_nodes(levels, *expansion_plan(order, kg, levels), False,
+                                      num_blocks)
+    block_node = torch.from_numpy(block_node).to(dev)
+    node_block = ep.node_blocks(block_node, 1 << levels)
+    values = _words(np.random.default_rng(levels), (16, 8, kg << levels), dev)
+    want = ep.leaf_blocks_plain(values, node_block, num_blocks)
+    got = ep.leaf_blocks(values, block_node, kg)
+    poisoned = _leaf_blocks_poisoned(values, block_node, kg, num_blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(poisoned, want)
 
 
 @pytest.mark.parametrize("tier", ["streaming", "chunked"])

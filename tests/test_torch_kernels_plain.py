@@ -227,6 +227,22 @@ def test_cuda_expand_level_source_matches_plain(host_kernels, level_case):
     assert np.array_equal(out_c, want_c)
 
 
+# K2's tiles hold 4 input columns: widths below, at and past one tile.
+@pytest.mark.parametrize("g,kg", [(1, 1), (3, 1), (4, 4), (6, 3), (36, 4)])
+def test_cuda_expand_level_source_at_ragged_widths(host_kernels, g, kg):
+    rng = np.random.default_rng(g)
+    args = [rng.integers(0, 1 << 32, s, dtype=np.uint32)
+            for s in ((16, 8, g), (g,), (16, 8, kg), (kg,), (kg,))]
+    out_s = np.full((16, 8, 2 * g), 0xAAAAAAAA, dtype=np.uint32)
+    out_c = np.full((2 * g,), 0xAAAAAAAA, dtype=np.uint32)
+    host_kernels.dpf_expand_level_host(
+        *(_ptr(a) for a in args), _ptr(out_s), _ptr(out_c), g, kg
+    )
+    want_s, want_c = ep.expand_level_plain(*(to_tensor(a, "cpu") for a in args))
+    assert np.array_equal(out_s, to_numpy(want_s))
+    assert np.array_equal(out_c, to_numpy(want_c))
+
+
 def test_cuda_value_hash_source_matches_plain(host_kernels, value_case):
     (state, ctrl, vc), want = value_case
     arrs = [np.ascontiguousarray(a) for a in (state, ctrl, vc)]

@@ -276,9 +276,11 @@ def test_leaf_blocks_matches_numpy(kg, nodes, num_blocks):
     node_block = np.full(nodes, -1, dtype=np.int32)
     kept = min(nodes, num_blocks)
     node_block[rng.permutation(nodes)[:kept]] = np.arange(kept, dtype=np.int32)
+    block_node = np.full(num_blocks, -1, dtype=np.int32)
+    block_node[node_block[node_block >= 0]] = np.flatnonzero(node_block >= 0)
     cuda_lib.reset_launch_counts()
     got = leaf_blocks(to_tensor(planes.reshape(16, 8, -1), "cpu"),
-                      torch.from_numpy(node_block), num_blocks)
+                      torch.from_numpy(block_node), kg)
     assert cuda_lib.LAUNCHES["leaf_blocks"] == 0
     assert np.array_equal(to_numpy(got).view(np.uint32),
                           _leaf_blocks_numpy(planes, node_block, num_blocks))
