@@ -28,7 +28,10 @@ non-zero before printing a result. Phases, one JSON line each:
    phase of walk mode: head 4 -> 2,048 word columns over 9 levels, tail
    2,048 -> 32,768 over 4 levels with the value hash), K6 `expand_head`
    (4 -> 2,048) and K5 `expand_tail` (2,048 -> 32,768, 128-column
-   tiles); K8 `path_level` (one path-walk level: per seed at 32 word
+   tiles), both also at tail mode's shapes of the materialized tier
+   (KG = 32: 32 -> 2,048 and 65,536 -> 2^20) and of the DPF full domain
+   (KG = 1: 1 -> 1,024 and 1,024 -> 16,384), with their registers and
+   spills; K8 `path_level` (one path-walk level: per seed at 32 word
    columns, the DCF's 1,024 keys, and at 2,048; shared corrections at
    2,048, at 32, `evaluate_at`'s 1,024 points, and at 2, `evaluate_next`'s
    64 prefixes; then the walks of one launch its callers make: the DCF's
@@ -137,7 +140,7 @@ non-zero before printing a result. Phases, one JSON line each:
    - `main_path_v1`: the main path's database built with
      `inner_product="v1"`, both parties served in the default mode: every
      record reconstructs, K4 = 4 and K7 = 2 launches, no K1;
-   - `tier` x3 at `BASELINE.json` configs[2] (2^22 x 256 B records, 1,024
+   - `tier` x4 at `BASELINE.json` configs[2] (2^22 x 256 B records, 1,024
      queries): `materialized` at the card's default budget, `streaming`
      under a 64 MiB selection budget (`CapacityModel(selection_budget=64
      << 20)` through `set_default_capacity_model`) and `chunked` under
@@ -149,7 +152,10 @@ non-zero before printing a result. Phases, one JSON line each:
      idle share, and the modeled against the measured peak bytes
      (`torch.cuda.max_memory_allocated` around one party's batch), with
      the bytes of that batch's staged keys and response rows, which the
-     model does not count, measured beside them.
+     model does not count, measured beside them; then the materialized
+     tier once more in tail mode (`expansion="tail"`: K6, K2 for the
+     middle levels, K5), its responses equal to the first run's, its
+     launches from the plan, its peak under the same gate.
 8. `{"kernels": [...]}`: every ported kernel with its launches on the
    main path (the run of the mode or path that launches it; K1 from the
    default mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of its
@@ -855,9 +861,12 @@ def tiers_phase(rng, dev) -> dict:
     both parties, the default expansion mode, on each serving tier the
     planner gives: materialized at the card's default budget (1/16 of its
     memory), streaming under a 64 MiB budget, chunked under the same
-    budget with the tier floor. The streaming and chunked responses must
-    equal the materialized tier's and reconstruct every queried record.
-    Returns {tier: launch counts}."""
+    budget with the tier floor; then the materialized tier once more in
+    tail mode (K6, K2 for the middle levels, K5). Every other run's
+    responses must equal the first materialized run's and reconstruct
+    every queried record, and every run's peak must pass the same gate.
+    Returns {run: launch counts}, the run named by its tier, with the
+    mode in brackets where it is not the default."""
     import torch
 
     from distributed_point_functions_tpu_torch.capacity.model import (
@@ -895,14 +904,17 @@ def tiers_phase(rng, dev) -> dict:
         return s0, s1
 
     reference, launches = None, {}
-    for tier, budget, floor in (("materialized", None, None),
-                                ("streaming", TIER_BUDGET, None),
-                                ("chunked", TIER_BUDGET, "chunked")):
+    for tier, budget, floor, mode in (
+            ("materialized", None, None, DEFAULT_EXPANSION),
+            ("streaming", TIER_BUDGET, None, DEFAULT_EXPANSION),
+            ("chunked", TIER_BUDGET, "chunked", DEFAULT_EXPANSION),
+            ("materialized", None, None, "tail")):
         set_default_capacity_model(
             None if budget is None else CapacityModel(selection_budget=budget))
         server_mod.set_tier_floor(floor)
-        server = DenseDpfPirServer.create_plain(db)
+        server = DenseDpfPirServer.create_plain(db, expansion=mode)
         plan = server._plan_serving(TIER_QUERIES)
+        run = tier if mode == DEFAULT_EXPANSION else f"{tier} ({mode})"
         if plan.mode != tier or (tier != "materialized"
                                  and (plan.chunk_levels, plan.cut_levels)
                                  != (TIER_CHUNK_LEVELS, TIER_CUT_LEVELS)):
@@ -911,17 +923,17 @@ def tiers_phase(rng, dev) -> dict:
         serve(server)  # warm-up, and the tier's staging
         first_s = time.perf_counter() - t0
         out = []
-        launches[tier] = counted(
+        launches[run] = counted(
             lambda: out.append(serve(server)),
-            tier_launches(plan, DEFAULT_EXPANSION, TIER_QUERIES // 32), f"{tier} tier")
+            tier_launches(plan, mode, TIER_QUERIES // 32), f"{run} tier")
         shares = out[0]
         if reference is None:
             reference = shares
         elif shares != reference:
-            raise AssertionError(f"{tier} tier: responses differ from the materialized tier's")
+            raise AssertionError(f"{run} tier: responses differ from the materialized tier's")
         for a, b, i in zip(*shares, idx):
             if bytes(x ^ y for x, y in zip(a, b)) != records[i]:
-                raise AssertionError(f"{tier} tier: record {i} does not reconstruct")
+                raise AssertionError(f"{run} tier: record {i} does not reconstruct")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -943,15 +955,15 @@ def tiers_phase(rng, dev) -> dict:
                    + (4 << plan.expand_levels) + (1 << 16))
         if peak > allowed:
             raise AssertionError(
-                f"{tier} tier: peak {peak} B above the model's "
+                f"{run} tier: peak {peak} B above the model's "
                 f"{plan.selection_bytes_peak} B plus keys and response ({allowed} B)")
         times = host_ms(lambda: serve(server), 5)
         emit({"phase": "tier", "tier": tier, "config": "BASELINE.json configs[2]",
               "records": TIER_RECORDS, "record_bytes": RECORD_BYTES,
-              "queries": TIER_QUERIES, "expansion": DEFAULT_EXPANSION,
+              "queries": TIER_QUERIES, "expansion": mode,
               "plan": dataclasses.asdict(plan), "tier_floor": server_mod.tier_floor(),
               "reconstructed": TIER_QUERIES, "equals_materialized": True,
-              "launches": launches[tier], "setup_s": setup_s, "keygen_s": keygen_s,
+              "launches": launches[run], "setup_s": setup_s, "keygen_s": keygen_s,
               "first_batch_s": first_s, "batch_ms": statistics.median(times),
               "batch_ms_all": times,
               "queries_per_sec": TIER_QUERIES / statistics.median(times) * 1e3,
@@ -1097,6 +1109,8 @@ def main() -> int:
 
     def measure(name, run, plain, ops, nbytes, plain_reps=3, plain_warmup=1,
                 ops_per_s=int32_ops_per_s):
+        """Kernel against plain version; `plain_reps=0` compares without
+        timing the plain version (`plain_ms` null)."""
         got = run()
         want = plain()
         torch.cuda.synchronize()
@@ -1104,7 +1118,8 @@ def main() -> int:
         return {"err": require_equal(name, got, want),
                 "ms": cuda_time_ms(run, reps=20),
                 "device_ms": kernel_time_ms(run),
-                "plain_ms": cuda_time_ms(plain, reps=plain_reps, warmup=plain_warmup),
+                "plain_ms": (cuda_time_ms(plain, reps=plain_reps, warmup=plain_warmup)
+                             if plain_reps else None),
                 "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes}
 
     def add_up(parts):
@@ -1168,7 +1183,7 @@ def main() -> int:
         emit({"phase": "kernel", "name": "walk_descend", "walk_phase": phase,
               "G0": g0, "levels": r, "W": g0 << r, "value_hash": vh,
               "launches_per_batch": 1, **part,
-              **split_info("walk_descend_kernel")})
+              **split_info("NaturalOrder")})
     results["walk_descend"] = add_up(phases)
 
     # K4 and K2 at the serving tiers' shapes (BASELINE configs[2]: 1,024
@@ -1198,7 +1213,7 @@ def main() -> int:
             emit({"phase": "kernel", "name": "walk_descend", "tier_shape": label,
                   "walk_phase": phase, "KG": key_groups, "G0": g0, "levels": r,
                   "W": g0 << r, "value_hash": vh, **part,
-                  **split_info("walk_descend_kernel")})
+                  **split_info("NaturalOrder")})
     _, tail, _ = expansion_plan("walk", tier_kg, tier_levels)
     # The streaming tier's cut state: its first TIER_CUT_LEVELS K2 levels.
     for i in range(tier_levels - tail):  # every K2 input width of both tiers
@@ -1253,24 +1268,43 @@ def main() -> int:
               "blocks": num_blocks, **part, "ptxas": ptxas_of(ptxas, leaf_kernel(key_groups))})
     del values
 
-    # K6 and K5: tail mode's head and tiled tail.
-    head, tail, tile_nodes = plans["tail"]
-    *args, _ = fused_args(kg, head)
-    results["expand_head"] = measure(
-        "expand_head", lambda: ep.expand_head(*args),
-        lambda: ep.expand_head_plain(*args), *doubling_work(kg, head, False))
-    emit({"phase": "kernel", "name": "expand_head", "G0": kg, "levels": head,
-          "W": kg << head, "launches_per_batch": 1, **results["expand_head"]})
-    g0 = kg << (expand_levels - tail)
-    args = fused_args(g0, tail)
-    # The plain version runs tile by tile (16 tiles here): one timed call.
-    results["expand_tail"] = measure(
-        "expand_tail", lambda: ep.expand_tail(*args, tile_nodes * kg),
-        lambda: ep.expand_tail_plain(*args, tile_nodes * kg),
-        *doubling_work(g0, tail, True), plain_reps=1, plain_warmup=0)
-    emit({"phase": "kernel", "name": "expand_tail", "G0": g0, "levels": tail,
-          "W": g0 << tail, "tile_lanes": tile_nodes * kg,
-          "launches_per_batch": 1, **results["expand_tail"]})
+    # K6 and K5: tail mode's head and tiled tail at the main path's shapes,
+    # then at the materialized tier's (configs[2], KG = 32: 32 -> 2,048
+    # columns over 6 levels, 65,536 -> 2^20 over 4 in 128-column tiles) and
+    # the DPF full domain's (KG = 1: 1 -> 1,024 over 10, 1,024 -> 16,384
+    # over 4). The plain tail runs tile by tile: one timed call, and at the
+    # materialized tier's 512 tiles (~84 s a call) none.
+    for label, key_groups, levels in (("main", kg, expand_levels),
+                                      ("materialized", tier_kg, tier_levels),
+                                      ("dpf_full_domain", 1, FD_LDS - 1 - 5)):
+        head, tail, tile_nodes = expansion_plan("tail", key_groups, levels)
+        main = label == "main"
+        *args, _ = fused_args(key_groups, head, key_groups)
+        part = measure(
+            f"expand_head {label}", lambda: ep.expand_head(*args),
+            lambda: ep.expand_head_plain(*args),
+            *doubling_work(key_groups, head, False, key_groups),
+            plain_reps=3 if main else 1)
+        shape = {"tier_shape": label, "KG": key_groups} if not main else {}
+        emit({"phase": "kernel", "name": "expand_head", **shape, "G0": key_groups,
+              "levels": head, "W": key_groups << head, "launches_per_batch": 1,
+              **part, **split_info("TiledOrder")})
+        g0 = key_groups << (levels - tail)
+        args = fused_args(g0, tail, key_groups)
+        tile_lanes = tile_nodes * key_groups
+        part_tail = measure(
+            f"expand_tail {label}", lambda: ep.expand_tail(*args, tile_lanes),
+            lambda: ep.expand_tail_plain(*args, tile_lanes),
+            *doubling_work(g0, tail, True, key_groups),
+            plain_reps=0 if label == "materialized" else 1, plain_warmup=0)
+        emit({"phase": "kernel", "name": "expand_tail", **shape, "G0": g0,
+              "levels": tail, "W": g0 << tail, "tile_lanes": tile_lanes,
+              "launches_per_batch": 1, **part_tail, **split_info("TiledOrder")})
+        if main:
+            results["expand_head"], results["expand_tail"] = part, part_tail
+        else:
+            for name, got in (("expand_head", part), ("expand_tail", part_tail)):
+                results[name]["err"] = max(results[name]["err"], got["err"])
 
     # K1, its accumulate entry and K7 are one count product of 0/1 matrices,
     # [nq, R] x [R, 32W]: 2 operations per (query, record, value bit, word),

@@ -17,9 +17,9 @@ writes from them, and both are alive while that kernel runs:
 * chunked: one chunk's leaf values and selections,
   `2 * nkp * 2**chunk_expand_levels * 16`.
 
-This holds in walk and level mode. Tail mode's fused tail (K5) holds two
-more leaf-sized scratch buffers while it runs. The staged keys and the
-response rows are not selections and are not counted.
+This holds in every expansion mode: the fused kernels hold no scratch
+beside their outputs. The staged keys and the response rows are not
+selections and are not counted.
 
 The budget is an explicit `selection_budget`, else 1/16 of the device's
 memory (`device.device_memory_bytes`: the CUDA card's), else 1 GiB (the

@@ -1,14 +1,10 @@
-// Per-column bodies shared by the expansion kernels (expand_planes.cu,
-// expand_fused.cu) and by their host twins.
+// The one-thread AES body of K3 (expand_planes.cu) and its host twin, and
+// the macros that let the kernels' sources build for the host.
 //
 // Layout: state int32/uint32 [16, 8, G] -- plane p = 8 * byte + bit, word
 // m of a plane holds that bit for lanes 32m..32m+31 (lane = node * 32KG +
 // key). Per-key corrections are packed at [16, 8, KG] and [KG] words and
 // are read at column m % KG (no tiling in memory).
-//
-// The input pointers carry no __restrict__: the fused kernels read planes
-// that other blocks of the same launch wrote, which the read-only
-// (non-coherent) load path must not serve.
 //
 // Without __CUDACC__ (a host C++ compiler) the bodies build for the host,
 // and the CPU tests hold them against the plain PyTorch versions.
@@ -53,38 +49,6 @@ __device__ __forceinline__ void aes_encrypt_fixed(uint32_t (&s)[128], int key) {
 __device__ __forceinline__ uint32_t sigma_plane(const uint32_t* in, int64_t g,
                                                 int64_t m, int p) {
   return p < 64 ? in[(p + 64) * g + m] : in[p * g + m] ^ in[(p - 64) * g + m];
-}
-
-// Child `child` (0 left, 1 right) of input column m of the [128, g]
-// planes: MMO hash with the child's key, seed correction under the parent
-// control word, plane 0 (the seed LSB) out as the child control word and
-// cleared, then the direction correction. Writes column `oc` of the
-// [128, 2g] output planes and of the [2g] control words.
-__device__ __forceinline__ void expand_column(
-    const uint32_t* state, const uint32_t* ctrl, const uint32_t* cwp,
-    const uint32_t* cwl, const uint32_t* cwr, uint32_t* out_state,
-    uint32_t* out_ctrl, int64_t g, int64_t kg, int64_t m, int child,
-    int64_t oc) {
-  const int64_t k = m % kg;
-  const uint32_t c = ctrl[m];
-  uint32_t s[128];
-  DPF_UNROLL
-  for (int p = 0; p < 128; ++p) s[p] = sigma_plane(state, g, m, p);
-  aes_encrypt_fixed(s, child == 0 ? kKeyLeft : kKeyRight);
-  uint32_t* out = out_state + oc;
-  uint32_t t = 0;
-  DPF_UNROLL
-  for (int p = 0; p < 128; ++p) {
-    const uint32_t v = s[p] ^ sigma_plane(state, g, m, p) ^ (cwp[p * kg + k] & c);
-    if (p == 0) {
-      t = v;
-      out[0] = 0u;
-    } else {
-      out[p * 2 * g] = v;
-    }
-  }
-  const uint32_t dir = child == 0 ? cwl[k] : cwr[k];
-  out_ctrl[oc] = t ^ (c & dir);
 }
 
 // Leaf value of word column m: MMO hash with the value key, XOR the value

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "dpf_xor_counts": [_P] * 3 + [_I64] * 3 + [ctypes.c_int, _P],
     "dpf_repeat_tiles": [_P] * 2 + [_I64] * 3 + [_P],
     "dpf_walk_descend": [_P] * 8 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
-    "dpf_expand_levels": [_P] * 12 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P],
+    "dpf_expand_head": [_P] * 7 + [_I64] * 2 + [ctypes.c_int, _P],
+    "dpf_expand_tail": [_P] * 8 + [_I64] * 3 + [ctypes.c_int, _P],
     "dpf_path_walk": [_P] * 7 + [ctypes.c_int] + [_P] * 2 + [_I64] * 2
                      + [ctypes.c_int, _P],
     "dpf_leaf_blocks": [_P] * 3 + [_I64] * 3 + [_P],

@@ -21,7 +21,10 @@ The counterpart of the JAX package's `ops/expand_planes_pallas.py`.
   Replaces `_tail_kernel` (`ops/expand_planes_pallas.py:392`).
 * `expand_head` (K6) -- the first r doubling levels over the whole
   narrow width in one launch, doubling order. Replaces `_head_kernel`
-  (`ops/expand_planes_pallas.py:453`).
+  (`ops/expand_planes_pallas.py:453`). K4, K5 and K6 are one kernel body
+  (`csrc/expand_fused.cu`): a block a subtree, its last levels doubled in
+  shared memory, the leaves stored in the order each asks for; no
+  scratch beyond the outputs.
 * `path_walk` (K8) -- L path-walk levels in one launch: at each level
   each column hashes once with the left or right key as its packed path
   bit says (select-key AES), then the seed correction, the control bit
@@ -45,13 +48,13 @@ fallback from one to the other.
 
 Bound on the H100: 32-bit integer logic. A child of one 32-lane word
 column is a whole bitsliced AES (~32k word ops) against 1.5 KB of state
-traffic. K3, K5 and K6 keep the 128-word state in registers, one thread
-per (child, word column), compile the fixed round keys in, and re-read
-the input column for the MMO feed-forward rather than keep sigma live.
-K2, K4 and K8 split each column's AES over a group of 16 threads
-(`csrc/split_aes.cuh`); K2 gives each child its own group, K4 doubles a
-subtree's last levels in shared memory (see the sources for the designs,
-registers and spills). `leaf_blocks` is bound by bytes.
+traffic. K3 keeps the 128-word state in registers, one thread per word
+column, compiles the fixed round keys in, and re-reads the input column
+for the MMO feed-forward rather than keep sigma live. K2, K4-K6 and K8
+split each column's AES over a group of 16 threads
+(`csrc/split_aes.cuh`); K2 gives each child its own group, K4-K6 double
+a subtree's last levels in shared memory (see the sources for the
+designs, registers and spills). `leaf_blocks` is bound by bytes.
 
 Per-key corrections stay packed at [16, 8, KG] planes and [KG] words
 (KG = padded keys / 32), one such row per level for K4-K6 ([r, 16, 8,
@@ -364,27 +367,19 @@ def walk_descend(state, ctrl, cwp, cwl, cwr, vc=None, *, value_hash=False,
     return out, out_ctrl
 
 
-def _launch_doubling(name, state, ctrl, cwp, cwl, cwr, vc, g0, kg, r, tile):
-    """One cooperative launch of `dpf_expand_levels` (K5 with a value
-    correction, K6 without); returns (planes, ctrl) at width G0 << r."""
+def _launch_fused(name, tensors, sizes, width):
+    """One launch of K6 (`dpf_expand_head`) or K5 (`dpf_expand_tail`) on
+    the input `tensors` and the integer arguments `sizes`. Allocates only
+    the outputs: (planes int32[16, 8, width], ctrl int32[width])."""
+    dev = tensors[0].device
+    out = torch.empty((16, 8, width), dtype=torch.int32, device=dev)
+    out_ctrl = torch.empty((width,), dtype=torch.int32, device=dev)
     lib = cuda_lib.library()
-    dev = state.device
-    w = g0 << r
-    # Ping-pong scratch: every level but the last fits in half the leaf
-    # width; K5's last level goes to scratch too, before the value hash.
-    half = w if vc is not None else w // 2
-    bufs = [torch.empty((128 * half,), dtype=torch.int32, device=dev) for _ in range(2)]
-    cbufs = [torch.empty((half,), dtype=torch.int32, device=dev) for _ in range(2)]
-    out = torch.empty((16, 8, w), dtype=torch.int32, device=dev)
-    out_ctrl = torch.empty((w,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dpf_expand_levels(
-            state.data_ptr(), ctrl.data_ptr(), cwp.data_ptr(), cwl.data_ptr(),
-            cwr.data_ptr(), _ptr(vc), bufs[0].data_ptr(), cbufs[0].data_ptr(),
-            bufs[1].data_ptr(), cbufs[1].data_ptr(), out.data_ptr(),
-            out_ctrl.data_ptr(), g0, kg, tile, r, int(vc is not None), stream,
-        )
+        err = getattr(lib, f"dpf_{name}")(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), out_ctrl.data_ptr(),
+            *sizes, stream)
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.check(err, name)
     return out, out_ctrl
@@ -399,8 +394,8 @@ def expand_head(state, ctrl, cwp, cwl, cwr):
     g0, kg, r = _check_fused_args(state, ctrl, cwp, cwl, cwr, None)
     if state.device.type == "cpu":
         return expand_head_plain(state, ctrl, cwp, cwl, cwr)
-    return _launch_doubling("expand_head", state, ctrl, cwp, cwl, cwr, None,
-                            g0, kg, r, g0)
+    return _launch_fused("expand_head", (state, ctrl, cwp, cwl, cwr), (g0, kg, r),
+                         g0 << r)
 
 
 def expand_tail(state, ctrl, cwp, cwl, cwr, vc, tile_lanes: int):
@@ -421,8 +416,8 @@ def expand_tail(state, ctrl, cwp, cwl, cwr, vc, tile_lanes: int):
         raise ValueError(f"tile_lanes {tile_lanes} must be a positive multiple of KG {kg}")
     if state.device.type == "cpu":
         return expand_tail_plain(state, ctrl, cwp, cwl, cwr, vc, tile_lanes)
-    return _launch_doubling("expand_tail", state, ctrl, cwp, cwl, cwr, vc,
-                            g0, kg, r, tile_lanes)
+    return _launch_fused("expand_tail", (state, ctrl, cwp, cwl, cwr, vc),
+                         (g0, kg, tile_lanes, r), g0 << r)
 
 
 def path_level_plain(state, ctrl, sel, cwp, cwl, cwr):

@@ -96,7 +96,10 @@ def test_walk_descend_matches_plain(dev, g0, kg, r, nodes, vh):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("g0,kg,r", [(3, 1, 1), (6, 2, 3), (4, 4, 9)])
+# (4, 4, 9): the main path's head, 4 -> 2,048 columns; (32, 32, 6): the
+# materialized tier's at 1,024 queries; (1, 1, 10): the DPF full domain's.
+@pytest.mark.parametrize("g0,kg,r", [(3, 1, 1), (6, 2, 3), (4, 4, 9), (32, 32, 6),
+                                     (1, 1, 10)])
 def test_expand_head_matches_plain(dev, g0, kg, r):
     rng = np.random.default_rng(g0 * r)
     *args, _ = _fused_args(rng, g0, kg, r, dev)
@@ -108,9 +111,11 @@ def test_expand_head_matches_plain(dev, g0, kg, r):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-# The last case is the main path's tail: 2,048 -> 32,768 columns in
-# 128-column tiles; (6, 2, 2, 4) has a narrower last tile.
-@pytest.mark.parametrize("g0,kg,r,tile", [(6, 2, 2, 4), (8, 1, 3, 1), (2048, 4, 4, 128)])
+# (2048, 4, 4, 128) is the main path's tail: 2,048 -> 32,768 columns in
+# 128-column tiles; (6, 2, 2, 4) has a narrower last tile, and so has
+# (12, 2, 5, 8), whose blocks also walk one root level before doubling.
+@pytest.mark.parametrize("g0,kg,r,tile", [(6, 2, 2, 4), (8, 1, 3, 1), (2048, 4, 4, 128),
+                                          (12, 2, 5, 8)])
 def test_expand_tail_matches_plain(dev, g0, kg, r, tile):
     rng = np.random.default_rng(g0 + tile)
     args = _fused_args(rng, g0, kg, r, dev)

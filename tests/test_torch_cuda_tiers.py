@@ -1,5 +1,5 @@
 """K7, K9, K1's accumulate entry, `leaf_blocks` and the serving tiers on
-the card, against their plain versions on the host.
+the card, against their plain versions on the host, and K5's memory.
 
 Marked `cuda`; each test skips without a CUDA device. The shapes are small
 and ragged. This file imports no JAX, so on a machine with a card and
@@ -140,6 +140,23 @@ def test_leaf_blocks_writes_every_word_in_exit_orders(dev, kg, levels, order, nu
     poisoned = _leaf_blocks_poisoned(values, block_node, kg, num_blocks)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(poisoned, want)
+
+
+def test_expand_tail_allocates_only_its_outputs(dev):
+    # The main path's tail (2,048 -> 32,768 columns, 128-column tiles): the
+    # launch holds no scratch beside its two outputs.
+    rng = np.random.default_rng(5)
+    g0, kg, r, tile = 2048, 4, 4, 128
+    args = [_words(rng, s, dev) for s in
+            ((16, 8, g0), (g0,), (r, 16, 8, kg), (r, kg), (r, kg), (16, 8, kg))]
+    ep.expand_tail(*args, tile)  # the build, and any first-call state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = ep.expand_tail(*args, tile)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in out)
+    assert torch.cuda.max_memory_allocated(dev) - base <= outputs + (64 << 10)
 
 
 @pytest.mark.parametrize("tier", ["streaming", "chunked"])

@@ -7,7 +7,9 @@ own walk self-check uses (`_walk_twin_lanes` maps its leaves onto the
 walk's natural order), and `tail_node_permutation` for the tiled order of
 the fused tail. Each instance is made with numpy from a seed: entry width
 8 word columns, KG = 1 or 2 key words, 3 levels (the 1-level cases read
-the first level of the same run). The plain PyTorch versions run for CPU
+the first level of the same run); and 5 levels from 3 or 6 columns, so
+that K5 and K6 walk a subtree's root before doubling, with tiles that do
+not divide the entry width. The plain PyTorch versions run for CPU
 tensors; the CUDA sources, built for the host with a C++ compiler, are
 held against the same references. No Pallas interpret mode.
 """
@@ -79,53 +81,71 @@ def _jax_mmo_values(leaves, vcs):
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _instances():
-    """{KG: dict(args=..., want={levels: (leaf state, ctrl, values)})} for
-    1 and R levels of the JAX doubling twin (`expand_level_planes`)."""
-    rng = np.random.default_rng(700)
-    args = {
-        kg: dict(state=_words(rng, 16, 8, G0), ctrl=_words(rng, G0),
-                 cwp=_words(rng, R, 16, 8, kg), cwl=_words(rng, R, kg),
-                 cwr=_words(rng, R, kg), vc=_words(rng, 16, 8, kg))
-        for kg in KGS
-    }
-    states = [args[kg]["state"] for kg in KGS]
-    ctrls = [args[kg]["ctrl"] for kg in KGS]
-    leaves = {}
-    for i in range(R):
-        gs = [s.shape[-1] for s in states]
-        n = sum(gs)
-        cwp = np.concatenate([_cols(args[kg]["cwp"][i], g) for kg, g in zip(KGS, gs)], -1)
-        cwl = np.concatenate([_cols(args[kg]["cwl"][i], g) for kg, g in zip(KGS, gs)])
-        cwr = np.concatenate([_cols(args[kg]["cwr"][i], g) for kg, g in zip(KGS, gs)])
-        # Left children take columns [0, WIDTH), right ones [WIDTH, 2 WIDTH).
-        cw2 = np.concatenate([_pad(cwp, WIDTH), _pad(cwp, WIDTH)], axis=-1)
-        s2, c2 = (np.asarray(a) for a in jdep.expand_level_planes(
-            jnp.asarray(_pad(np.concatenate(states, -1), WIDTH)),
-            jnp.asarray(_pad(np.concatenate(ctrls), WIDTH)),
-            jnp.asarray(cw2), jnp.asarray(_pad(cwl, WIDTH)),
-            jnp.asarray(_pad(cwr, WIDTH)),
+def _jax_level(state, ctrl, cwp, cwl, cwr):
+    """One JAX doubling level (`expand_level_planes`) of [16, 8, g] planes,
+    the per-key corrections [16, 8, KG] / [KG] tiled over the columns, in
+    WIDTH-column chunks (every column expands on its own)."""
+    g = state.shape[-1]
+    cwp, cwl, cwr = _cols(cwp, g), _cols(cwl, g), _cols(cwr, g)
+    halves = ([], [], [], [])  # left states, right states, left ctrl, right ctrl
+    for lo in range(0, g, WIDTH):
+        n = min(WIDTH, g - lo)
+        cw = _pad(cwp[..., lo:lo + n], WIDTH)
+        s2, c2 = (np.asarray(x) for x in jdep.expand_level_planes(
+            jnp.asarray(_pad(state[..., lo:lo + n], WIDTH)),
+            jnp.asarray(_pad(ctrl[lo:lo + n], WIDTH)),
+            jnp.asarray(np.concatenate([cw, cw], axis=-1)),
+            jnp.asarray(_pad(cwl[lo:lo + n], WIDTH)),
+            jnp.asarray(_pad(cwr[lo:lo + n], WIDTH)),
         ))
-        offs = np.cumsum([0] + gs)
-        states = [np.concatenate([s2[..., o:o + g], s2[..., WIDTH + o:WIDTH + o + g]], -1)
-                  for o, g in zip(offs, gs)]
-        ctrls = [np.concatenate([c2[o:o + g], c2[WIDTH + o:WIDTH + o + g]])
-                 for o, g in zip(offs, gs)]
-        if i + 1 in (1, R):
-            leaves[i + 1] = list(zip(states, ctrls))
-    keys = [(r, kg) for r in leaves for kg in KGS]
-    values = _jax_mmo_values([leaves[r][KGS.index(kg)] for r, kg in keys],
-                             [args[kg]["vc"] for _, kg in keys])
-    want = {kg: {} for kg in KGS}
-    for (r, kg), v in zip(keys, values):
-        want[kg][r] = (*leaves[r][KGS.index(kg)], v)
-    return {kg: dict(kg=kg, args=args[kg], want=want[kg]) for kg in KGS}
+        for half, x in zip(halves, (s2[..., :n], s2[..., WIDTH:WIDTH + n],
+                                    c2[:n], c2[WIDTH:WIDTH + n])):
+            half.append(x)
+    return (np.concatenate(halves[0] + halves[1], axis=-1),
+            np.concatenate(halves[2] + halves[3]))
+
+
+@functools.lru_cache(maxsize=None)
+def _instance(kg, g0, r, levels):
+    """dict(kg, g0, args, want={level: (leaf state, ctrl, values)}) for
+    each of `levels` levels of the JAX doubling twin over r levels of
+    corrections, made with numpy from a seed."""
+    rng = np.random.default_rng(700 + 16 * kg + g0)
+    args = dict(state=_words(rng, 16, 8, g0), ctrl=_words(rng, g0),
+                cwp=_words(rng, r, 16, 8, kg), cwl=_words(rng, r, kg),
+                cwr=_words(rng, r, kg), vc=_words(rng, 16, 8, kg))
+    state, ctrl, leaves = args["state"], args["ctrl"], {}
+    for i in range(max(levels)):
+        state, ctrl = _jax_level(state, ctrl, args["cwp"][i], args["cwl"][i],
+                                 args["cwr"][i])
+        if i + 1 in levels:
+            leaves[i + 1] = (state, ctrl)
+    values = _jax_mmo_values([leaves[lv] for lv in levels], [args["vc"]] * len(levels))
+    want = {lv: (*leaves[lv], v) for lv, v in zip(levels, values)}
+    return dict(kg=kg, g0=g0, args=args, want=want)
+
+
+def _instances():
+    """{KG: instance} at entry width G0 for 1 and R levels."""
+    return {kg: _instance(kg, G0, R, (1, R)) for kg in KGS}
 
 
 @pytest.fixture(params=KGS, ids=["kg1", "kg2"])
 def inst(request):
     return _instances()[request.param]
+
+
+# Five levels, so that the fused kernels walk a subtree's root one level
+# before doubling the last four, at entry widths that the tail's tiles do
+# not divide: (KG, G0, tile lanes) with tiles of 2 + 1 and 4 + 2 columns.
+DEEP_R = 5
+DEEP = ((1, 3, 2), (2, 6, 4))
+
+
+@pytest.fixture(params=DEEP, ids=["kg1", "kg2"])
+def deep(request):
+    kg, g0, tile = request.param
+    return dict(_instance(kg, g0, DEEP_R, (DEEP_R,)), tile=tile)
 
 
 def _torch_args(args, r):
@@ -141,10 +161,10 @@ def _walk_lanes(r, kg, node_lanes):
     return jdep._walk_twin_lanes(np.arange(n_entry << r), r, n_entry, node_lanes)
 
 
-def _tile_lanes(r, kg, tile_lanes):
+def _tile_lanes(r, kg, tile_lanes, g0=G0):
     """Columns of the whole-width doubling twin in the tiled order of a
     fused tail with entry tiles of `tile_lanes` columns."""
-    n = G0 // kg
+    n = g0 // kg
     tiled = j_tail_order(np.arange(n), r, tile_lanes // kg)[0]
     pos_whole = np.argsort(j_tail_order(np.arange(n), r, n)[0])
     src = pos_whole[tiled]
@@ -197,10 +217,14 @@ def test_expand_head_plain_matches_jax(inst, r):
     assert np.array_equal(to_numpy(ctrl), c)
 
 
-@pytest.mark.parametrize("tile", ["kg", "4kg", "whole"])
+# "3kg" leaves a narrower last tile (8 = 3 + 3 + 2 nodes).
+TILES = ["kg", "3kg", "4kg", "whole"]
+
+
+@pytest.mark.parametrize("tile", TILES)
 def test_expand_tail_plain_matches_jax(inst, tile):
     kg = inst["kg"]
-    tile_lanes = {"kg": kg, "4kg": 4 * kg, "whole": G0}[tile]
+    tile_lanes = {"kg": kg, "3kg": 3 * kg, "4kg": 4 * kg, "whole": G0}[tile]
     t = _torch_args(inst["args"], R)
     values, ctrl = ep.expand_tail(
         t["state"], t["ctrl"], t["cwp"], t["cwl"], t["cwr"], t["vc"], tile_lanes)
@@ -280,7 +304,8 @@ def host_fused(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dpf_walk_descend_host.argtypes = [p] * 8 + [i64] * 3 + [i32] * 2
-    lib.dpf_expand_levels_host.argtypes = [p] * 12 + [i64] * 3 + [i32] * 2
+    lib.dpf_expand_head_host.argtypes = [p] * 7 + [i64] * 2 + [i32]
+    lib.dpf_expand_tail_host.argtypes = [p] * 8 + [i64] * 3 + [i32]
     return lib
 
 
@@ -315,38 +340,75 @@ def test_cuda_walk_descend_source_matches_jax(host_fused, inst, r, nodes, value_
     assert np.array_equal(out_c, c[lanes])
 
 
-def _host_doubling(lib, a, kg, r, tile, value_hash):
-    w = G0 << r
-    half = w if value_hash else w // 2
-    bufs = [np.empty(128 * half, dtype=np.uint32) for _ in range(2)]
-    cbufs = [np.empty(half, dtype=np.uint32) for _ in range(2)]
+def _host_head(lib, a, g0, kg, r):
+    w = g0 << r
     out = np.empty((16, 8, w), dtype=np.uint32)
     out_c = np.empty((w,), dtype=np.uint32)
-    lib.dpf_expand_levels_host(
+    assert lib.dpf_expand_head_host(
         *(_ptr(a[k]) for k in ("state", "ctrl", "cwp", "cwl", "cwr")),
-        _ptr(a["vc"] if value_hash else None), _ptr(bufs[0]), _ptr(cbufs[0]),
-        _ptr(bufs[1]), _ptr(cbufs[1]), _ptr(out), _ptr(out_c), G0, kg, tile, r,
-        int(value_hash),
-    )
+        _ptr(out), _ptr(out_c), g0, kg, r) == 0
+    return out, out_c
+
+
+def _host_tail(lib, a, g0, kg, r, tile):
+    w = g0 << r
+    out = np.empty((16, 8, w), dtype=np.uint32)
+    out_c = np.empty((w,), dtype=np.uint32)
+    assert lib.dpf_expand_tail_host(
+        *(_ptr(a[k]) for k in ("state", "ctrl", "cwp", "cwl", "cwr", "vc")),
+        _ptr(out), _ptr(out_c), g0, kg, tile, r) == 0
     return out, out_c
 
 
 @pytest.mark.parametrize("r", [1, R])
 def test_cuda_expand_head_source_matches_jax(host_fused, inst, r):
-    out, out_c = _host_doubling(host_fused, _host_args(inst["args"], r),
-                                inst["kg"], r, G0, False)
+    out, out_c = _host_head(host_fused, _host_args(inst["args"], r), G0, inst["kg"], r)
     s, c, _ = inst["want"][r]
     assert np.array_equal(out, s)
     assert np.array_equal(out_c, c)
 
 
-@pytest.mark.parametrize("tile", ["kg", "4kg", "whole"])
+@pytest.mark.parametrize("tile", TILES)
 def test_cuda_expand_tail_source_matches_jax(host_fused, inst, tile):
     kg = inst["kg"]
-    tile_lanes = {"kg": kg, "4kg": 4 * kg, "whole": G0}[tile]
-    out, out_c = _host_doubling(host_fused, _host_args(inst["args"], R), kg, R,
-                                tile_lanes, True)
+    tile_lanes = {"kg": kg, "3kg": 3 * kg, "4kg": 4 * kg, "whole": G0}[tile]
+    out, out_c = _host_tail(host_fused, _host_args(inst["args"], R), G0, kg, R,
+                            tile_lanes)
     _, c, v = inst["want"][R]
     lanes = _tile_lanes(R, kg, tile_lanes)
     assert np.array_equal(out, v[:, :, lanes])
     assert np.array_equal(out_c, c[lanes])
+
+
+# r = 5: each block walks its subtree's root one level, then doubles four.
+def test_cuda_expand_head_source_walks_the_root(host_fused, deep):
+    out, out_c = _host_head(host_fused, _host_args(deep["args"], DEEP_R), deep["g0"],
+                            deep["kg"], DEEP_R)
+    s, c, _ = deep["want"][DEEP_R]
+    assert np.array_equal(out, s)
+    assert np.array_equal(out_c, c)
+
+
+@pytest.mark.parametrize("tile", ["narrow", "whole"])
+def test_cuda_expand_tail_source_walks_the_root(host_fused, deep, tile):
+    kg, g0 = deep["kg"], deep["g0"]
+    tile_lanes = deep["tile"] if tile == "narrow" else g0
+    out, out_c = _host_tail(host_fused, _host_args(deep["args"], DEEP_R), g0, kg,
+                            DEEP_R, tile_lanes)
+    _, c, v = deep["want"][DEEP_R]
+    lanes = _tile_lanes(DEEP_R, kg, tile_lanes, g0)
+    assert np.array_equal(out, v[:, :, lanes])
+    assert np.array_equal(out_c, c[lanes])
+
+
+def test_plain_head_and_tail_walk_the_root(deep):
+    kg, g0 = deep["kg"], deep["g0"]
+    t = _torch_args(deep["args"], DEEP_R)
+    s, c, v = deep["want"][DEEP_R]
+    out, ctrl = ep.expand_head(t["state"], t["ctrl"], t["cwp"], t["cwl"], t["cwr"])
+    assert np.array_equal(to_numpy(out), s) and np.array_equal(to_numpy(ctrl), c)
+    values, ctrl = ep.expand_tail(t["state"], t["ctrl"], t["cwp"], t["cwl"], t["cwr"],
+                                  t["vc"], deep["tile"])
+    lanes = _tile_lanes(DEEP_R, kg, deep["tile"], g0)
+    assert np.array_equal(to_numpy(values), v[:, :, lanes])
+    assert np.array_equal(to_numpy(ctrl), c[lanes])

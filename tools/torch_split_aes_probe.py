@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""K4 and K8 on the split AES, shape by shape, against variants of their
-sources.
+"""K4-K6 and K8 on the split AES, shape by shape, against variants of
+their sources.
 
 Builds `distributed_point_functions_tpu_torch/csrc/expand_fused.cu` and
 `path_level.cu` from this checkout (`this`) and from every `--src
 LABEL=DIR` given (a `csrc` directory holding a variant of these sources
-with the same C entries), holds each build's K4 and K8 against the plain
-versions at every shape the serving paths give them, and times the builds
-there in two rounds (forward, then backward) so that drift falls on all
-alike. Then each build's level latency at one group: a one-column K8 walk
+with the same C entries), holds each build's K4, K5, K6 and K8 against
+the plain versions at every shape the serving paths give them, and times
+the builds there in two rounds (forward, then backward) so that drift
+falls on all alike. Then each build's level latency at one group: a one-column K8 walk
 of 256 levels, device time over the levels. It also prints the SASS
 opcode counts of this checkout's K4 and K8 kernels.
 
@@ -17,7 +17,10 @@ queries): K4 at the main path's head and tail (KG = 4: 4 -> 2,048 columns
 over 9 levels, 2,048 -> 32,768 over 4 with the value hash), the
 materialized tier's (KG = 32: 32 -> 2,048, 65,536 -> 2^20), a chunk's (32
 -> 2,048, 2,048 -> 32,768) and the DPF full domain's (KG = 1: 1 -> 1,024
-over 10 levels, 1,024 -> 16,384); K8 one level at G = KW = 32, G = KW =
+over 10 levels, 1,024 -> 16,384); K6 and K5 at tail mode's splits of the
+same three (K6: 4 -> 2,048 over 9 levels, 32 -> 2,048 over 6, 1 -> 1,024
+over 10; K5 in 128-column tiles: 2,048 -> 32,768, 65,536 -> 2^20, 1,024 ->
+16,384, each over 4); K8 one level at G = KW = 32, G = KW =
 2,048, G = 2,048 and 32 and 2 with KW = 1, the DCF's 31-level walk with 32
 stops (G = KW = 32) and a chunk's 5-level walk (G = KW = 32).
 
@@ -57,6 +60,15 @@ WALK_SHAPES = (
     ("chunk tail", 2048, 32, 32, 4, True),
     ("dpf head", 1, 1, 1, 10, False),
     ("dpf tail", 1024, 1, 1, 4, True),
+)
+# (label, G0, KG, r, tile lanes; None: K6)
+DOUBLING_SHAPES = (
+    ("main head", 4, 4, 9, None),
+    ("main tail", 2048, 4, 4, 128),
+    ("materialized head", 32, 32, 6, None),
+    ("materialized tail", 65536, 32, 4, 128),
+    ("dpf head", 1, 1, 10, None),
+    ("dpf tail", 1024, 1, 4, 128),
 )
 # (label, G, KW, levels, stops)
 PATH_SHAPES = (
@@ -117,9 +129,11 @@ def main() -> int:
             ln.strip() for ln in log.splitlines()
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]}), flush=True)
         lib = ctypes.CDLL(str(work / f"{name}.so"))
-        for fn in ("dpf_walk_descend", "dpf_path_walk"):
-            getattr(lib, fn).argtypes = cuda_lib._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
+        for fn in ("dpf_walk_descend", "dpf_expand_head", "dpf_expand_tail",
+                   "dpf_path_walk"):
+            if hasattr(lib, fn):  # an earlier tree may lack an entry
+                getattr(lib, fn).argtypes = cuda_lib._SIGNATURES[fn]
+                getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
 
     for src, proc in zip(("path_level", "expand_fused"), sass_procs):
@@ -186,6 +200,26 @@ def main() -> int:
                 raise SystemExit(f"walk_descend: launch error {err}")
         return run, (out, out_ctrl), want
 
+    def doubling_case(g0, kg, r, tile):
+        args = (words(16, 8, g0), words(g0), words(r, 16, 8, kg), words(r, kg),
+                words(r, kg), words(16, 8, kg))
+        w = g0 << r
+        out = torch.empty((16, 8, w), dtype=torch.int32, device=dev)
+        out_ctrl = torch.empty((w,), dtype=torch.int32, device=dev)
+        if tile is None:
+            args = args[:5]
+            want = ep.expand_head_plain(*args)
+        else:
+            want = ep.expand_tail_plain(*args, tile)
+
+        def run(lib):
+            ptrs = [a.data_ptr() for a in args] + [out.data_ptr(), out_ctrl.data_ptr()]
+            err = (lib.dpf_expand_head(*ptrs, g0, kg, r, stream()) if tile is None
+                   else lib.dpf_expand_tail(*ptrs, g0, kg, tile, r, stream()))
+            if err:
+                raise SystemExit(f"expand_head/tail: launch error {err}")
+        return run, (out, out_ctrl), want
+
     def path_case(g, kw, levels, stops):
         args = (words(16, 8, g), words(g), words(levels, g), words(levels, 16, 8, kw),
                 words(levels, kw), words(levels, kw))
@@ -203,15 +237,21 @@ def main() -> int:
         return run, (out, out_ctrl), want
 
     cases = ([("walk_descend", s[0], walk_case(*s[1:])) for s in WALK_SHAPES]
+             + [("expand_head" if s[4] is None else "expand_tail", s[0],
+                 doubling_case(*s[1:])) for s in DOUBLING_SHAPES]
              + [("path_walk", s[0], path_case(*s[1:])) for s in PATH_SHAPES])
+    def has(lib, kernel):
+        return hasattr(lib, f"dpf_{kernel}")
+
     for kernel, label, (run, got, want) in cases:
-        for name, lib in libs.items():
+        for name, lib in ((n, lb) for n, lb in libs.items() if has(lb, kernel)):
             got[0].zero_()
             run(lib)
             torch.cuda.synchronize()
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise SystemExit(f"{kernel} {label} {name}: differs from the plain version")
-        print(json.dumps({"kernel": kernel, "shape": label, "equal_to_plain": list(libs)}),
+        print(json.dumps({"kernel": kernel, "shape": label,
+                          "equal_to_plain": [n for n, lb in libs.items() if has(lb, kernel)]}),
               flush=True)
     if check_only:
         return 0
@@ -220,7 +260,7 @@ def main() -> int:
     for rnd, order in enumerate((names, names[::-1])):
         for kernel, label, (run, _, _) in cases:
             row = {"round": rnd, "kernel": kernel, "shape": label}
-            for name in order:
+            for name in (n for n in order if has(libs[n], kernel)):
                 row[f"{name}_ms"] = device_ms(lambda: run(libs[name]))
             print(json.dumps(row), flush=True)
     run, _, _ = path_case(1, 1, LATENCY_LEVELS, (LATENCY_LEVELS,))
