@@ -14,7 +14,8 @@ non-zero before printing a result. Phases, one JSON line each:
    clock); the raw `nvidia-smi --query-gpu=name,power.limit` line is
    printed on its own line too.
 2. `build`: the kernels built from `csrc/` (seconds, and the registers
-   and spills `nvcc -Xptxas -v` reports). Then `split_aes`: the latency
+   and spills `nvcc -Xptxas -v` reports), then the host library built
+   from `csrc/host/` with g++ (`host_library_seconds`). Then `split_aes`: the latency
    of one level of the split AES (csrc/split_aes.cuh) at one group, read
    from a one-column K8 walk of 256 levels that equals its plain version
    (a level: the select-key AES, sigma, the corrections and the control,
@@ -69,7 +70,30 @@ non-zero before printing a result. Phases, one JSON line each:
    rounds in ten against every other, or null. Then
    `main_path_breakdown` for each mode: one party's batch split into key
    staging, expansion and inner product (host clock, synchronized), and
-   the device's busy share from a `torch.profiler` trace of one request.
+   the device's busy share from a `torch.profiler` trace of one request;
+   `stage_keys_ms` is the staging with the native host walk, and
+   `stage_keys_numpy_ms` beside it the same staging with the numpy walk
+   (the plain version), whose arrays must be equal.
+   Then `two_party`: the same configuration (the main path's database, 128
+   new queries) served the way the reference is deployed. The port's
+   client makes a `LeaderRequest` (`create_request`: native keygen, the
+   Helper's keys and a one-time-pad seed serialized to proto3 bytes and
+   hybrid-encrypted to the fixed test keyset); a Leader and a Helper
+   `DenseDpfPirServer` on the card, walk mode, an in-process sender that
+   calls `while_waiting` and then the Helper. Every record must come back
+   through `handle_response`; the Leader's share (the combined response
+   XOR the Helper's) must equal a plain server's for the Leader's keys;
+   the Helper's bytes its plain share XOR the pad of the client's seed;
+   the launches walk K4 = 4, `leaf_blocks` = 2, K1 = 2 and nothing else;
+   native keygen and the native walk must equal their numpy plain
+   versions; `google.protobuf` must not be loaded. The line gives the
+   crypto backend, the host ms of each step (median of 7 rounds: keygen
+   native and numpy, serializing and encrypting the Helper's request,
+   the whole `create_request`, serializing and parsing the
+   `LeaderRequest`, the Helper's decrypt and parse, staging with the
+   native and the numpy walk, each role's serve, the mask, the combine,
+   the whole `handle_request` and the unmask), the round trip's q/s over
+   14 rounds with its spread, and the device's idle share.
 6. The DPF and DCF paths, each run with every launch count set to 0
    just before it and checked just after:
    - `dcf`: `DistributedComparisonFunction.create(32, IntType(64))`,
@@ -223,6 +247,8 @@ SLEEP_CYCLES = 50_000_000
 # csrc/split_aes.cuh), and the levels of the walk that times one level.
 SPLIT_GROUP = 16
 LATENCY_LEVELS = 256
+# Rounds of each host step the two-party phase times (the median is kept).
+TWO_PARTY_REPS = 7
 
 
 def emit(obj) -> None:
@@ -884,6 +910,7 @@ def tiers_phase(rng, dev) -> dict:
         DEFAULT_EXPANSION,
         pack_key_batch,
     )
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 
     t0 = time.perf_counter()
     data = rng.bytes(TIER_RECORDS * RECORD_BYTES)
@@ -894,7 +921,8 @@ def tiers_phase(rng, dev) -> dict:
     setup_s = time.perf_counter() - t0
     idx = [int(i) for i in rng.integers(0, TIER_RECORDS, TIER_QUERIES)]
     t0 = time.perf_counter()
-    r0, r1 = DenseDpfPirClient.create(TIER_RECORDS).create_plain_requests(idx)
+    r0, r1 = DenseDpfPirClient.create(
+        TIER_RECORDS, encrypt_decrypt.encrypt).create_plain_requests(idx)
     keygen_s = time.perf_counter() - t0
 
     def serve(server):
@@ -979,6 +1007,159 @@ def tiers_phase(rng, dev) -> dict:
     return launches
 
 
+def stage_keys_numpy(dense_eval, keys, walk_levels):
+    """`dense_eval.stage_keys_host` with the numpy walk (the plain version)
+    in place of the native one: the staging figure of the trees before the
+    native host library, beside it for one PR."""
+    s0, c0, cws, cwl, cwr, vc = dense_eval.stage_keys_host(keys, 0)
+    s0, c0 = dense_eval._walk_zeros_host_plain(s0, c0, cws, cwl, cwr, walk_levels)
+    return s0, c0, cws[walk_levels:], cwl[walk_levels:], cwr[walk_levels:], vc
+
+
+def two_party_phase(rng, dev, db, records, walk_levels: int, smi_line: str) -> dict:
+    """BASELINE.json configs[1] served the way the reference is deployed:
+    the client's `LeaderRequest` (its keys, and the Helper's encrypted to
+    the fixed test keyset) through a Leader and a Helper
+    `DenseDpfPirServer` on the card, in walk mode, over the main path's
+    staged database; an in-process sender calls `while_waiting` (the
+    Leader's own share) and then the Helper. Checks every record through
+    `handle_response`, the Leader's share and the Helper's masked bytes
+    against a plain server and the pad, the launch counts, and the native
+    keygen and walk against their numpy plain versions; times each host
+    step (median of `TWO_PARTY_REPS` rounds), the round trip's q/s and the
+    device's idle share. Returns the counted launches."""
+    import torch
+
+    from distributed_point_functions_tpu_torch import prng, serialization
+    from distributed_point_functions_tpu_torch.crypto import BACKEND
+    from distributed_point_functions_tpu_torch.pir import (
+        DenseDpfPirClient,
+        DenseDpfPirServer,
+        dense_eval,
+        messages,
+    )
+    from distributed_point_functions_tpu_torch.pir.client import ENCRYPTION_CONTEXT_INFO
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    helper = DenseDpfPirServer.create_helper(db, encrypt_decrypt.decrypt, device=dev,
+                                             expansion="walk")
+    seen = []
+
+    def sender(helper_request, while_waiting):
+        while_waiting()
+        seen.append(helper.handle_request(helper_request))
+        return seen[-1]
+
+    leader = DenseDpfPirServer.create_leader(db, sender, device=dev, expansion="walk")
+    plain = DenseDpfPirServer.create_plain(db, device=dev, expansion="walk")
+    client = DenseDpfPirClient.create(NUM_RECORDS, encrypt_decrypt.encrypt)
+    dpf = client.dpf
+    idx = [int(i) for i in rng.integers(0, NUM_RECORDS, NUM_QUERIES)]
+    want = [records[i] for i in idx]
+
+    request, state = client.create_request(idx)
+    leader.handle_request(request)  # warm-up
+    torch.cuda.synchronize()
+    out = []
+    launches = counted(lambda: out.append(leader.handle_request(request)),
+                       {"walk_descend": 4, "leaf_blocks": 2, "xor_inner_product": 2},
+                       "two_party")
+    combined = out[0].dpf_pir_response.masked_response
+    if client.handle_response(out[0], state) != want:
+        raise AssertionError("two_party: a record does not reconstruct")
+    # The Helper's leg as it arrived, decrypted with the test keyset.
+    ciphertext = request.leader_request.encrypted_helper_request.encrypted_request
+    inner = messages.parse_helper_request(
+        dpf, encrypt_decrypt.decrypt(ciphertext, ENCRYPTION_CONTEXT_INFO))
+    if inner.one_time_pad_seed != state.one_time_pad_seed:
+        raise AssertionError("two_party: the Helper's pad seed is not the client's")
+
+    def share(keys):
+        return plain.handle_plain_request(messages.PirRequest(
+            plain_request=messages.PlainRequest(keys))).dpf_pir_response.masked_response
+
+    helper_masked = seen[-1].dpf_pir_response.masked_response
+    helper_share = share(inner.plain_request.dpf_keys)
+    pad = prng.Aes128CtrSeededPrng(inner.one_time_pad_seed)
+    if helper_masked != [prng.xor_bytes(r, pad.get_random_bytes(len(r)))
+                         for r in helper_share]:
+        raise AssertionError("two_party: the Helper's bytes are not its share XOR the pad")
+    leader_keys = request.leader_request.plain_request.dpf_keys
+    if [prng.xor_bytes(c, h) for c, h in zip(combined, helper_masked)] != share(leader_keys):
+        raise AssertionError("two_party: the Leader's share differs from the plain server's")
+
+    # Native keygen and walk against their numpy plain versions here.
+    alphas = [i // 128 for i in idx]
+    betas = [1 << (i % 128) for i in idx]
+    roots = rng.integers(0, 1 << 32, (2, NUM_QUERIES, 4), dtype=np.uint32)
+    if (dpf.generate_keys_batch(alphas, betas, _root_seeds=roots)
+            != dpf._generate_keys_batch_plain(alphas, betas, _root_seeds=roots)):
+        raise AssertionError("two_party: native keygen differs from the numpy keygen")
+    staged = dense_eval.stage_keys_host(leader_keys, walk_levels)
+    staged_np = stage_keys_numpy(dense_eval, leader_keys, walk_levels)
+    if not all(np.array_equal(a, b) for a, b in zip(staged, staged_np)):
+        raise AssertionError("two_party: the native walk differs from the numpy walk")
+    if "google.protobuf" in sys.modules:
+        raise AssertionError("two_party: google.protobuf was imported")
+
+    # Host ms of each step: the median of TWO_PARTY_REPS rounds.
+    helper_request = messages.HelperRequest(
+        messages.PlainRequest(inner.plain_request.dpf_keys), inner.one_time_pad_seed)
+    helper_bytes = messages.serialize_helper_request(dpf, helper_request)
+    leader_wire = serialization.serialize_pir_request(dpf, request)
+    leader_plain = messages.PirRequest(plain_request=request.leader_request.plain_request)
+    helper_plain = messages.PirRequest(plain_request=inner.plain_request)
+    steps = {
+        "keygen_native_ms": lambda: dpf.generate_keys_batch(alphas, betas),
+        "keygen_numpy_ms": lambda: dpf._generate_keys_batch_plain(alphas, betas),
+        "helper_request_serialize_ms":
+            lambda: messages.serialize_helper_request(dpf, helper_request),
+        "encrypt_ms": lambda: encrypt_decrypt.encrypt(helper_bytes, ENCRYPTION_CONTEXT_INFO),
+        "create_request_ms": lambda: client.create_request(idx),
+        "leader_request_serialize_ms":
+            lambda: serialization.serialize_pir_request(dpf, request),
+        "leader_request_parse_ms": lambda: serialization.parse_pir_request(dpf, leader_wire),
+        "helper_decrypt_ms":
+            lambda: encrypt_decrypt.decrypt(ciphertext, ENCRYPTION_CONTEXT_INFO),
+        "helper_parse_ms": lambda: messages.parse_helper_request(dpf, helper_bytes),
+        "stage_keys_host_native_ms":
+            lambda: dense_eval.stage_keys_host(leader_keys, walk_levels),
+        "stage_keys_host_numpy_ms":
+            lambda: stage_keys_numpy(dense_eval, leader_keys, walk_levels),
+        "leader_serve_ms": lambda: leader.handle_plain_request(leader_plain),
+        "helper_serve_ms": lambda: helper.handle_plain_request(helper_plain),
+        "helper_mask_ms": lambda: prng.mask_all(
+            helper_share, prng.Aes128CtrSeededPrng(inner.one_time_pad_seed)),
+        "leader_combine_ms":
+            lambda: [prng.xor_bytes(h, c) for h, c in zip(helper_masked, combined)],
+        "leader_handle_request_ms": lambda: leader.handle_request(request),
+        "unmask_ms": lambda: client.handle_response(out[0], state),
+    }
+    rounds = {name: host_ms(fn, TWO_PARTY_REPS) for name, fn in steps.items()}
+
+    def round_trip():
+        req, st = client.create_request(idx)
+        client.handle_response(leader.handle_request(req), st)
+
+    trips = host_ms(round_trip, 2 * TWO_PARTY_REPS)
+    qps = sorted(NUM_QUERIES / t * 1e3 for t in trips)
+    busy = device_busy(lambda: leader.handle_request(request))
+    emit({"phase": "two_party", "records": NUM_RECORDS, "record_bytes": RECORD_BYTES,
+          "queries": NUM_QUERIES, "expansion": "walk", "reconstructed": NUM_QUERIES,
+          "launches": launches, "crypto_backend": BACKEND,
+          "google_protobuf_loaded": "google.protobuf" in sys.modules,
+          "native_keygen_equals_numpy": True, "native_walk_equals_numpy": True,
+          "helper_request_bytes": len(helper_bytes), "ciphertext_bytes": len(ciphertext),
+          "leader_request_bytes": len(leader_wire), "walk_levels": walk_levels,
+          **{name: statistics.median(t) for name, t in rounds.items()},
+          "rounds_ms": rounds,
+          "round_trip_ms": statistics.median(trips), "round_trip_ms_all": trips,
+          "queries_per_sec": statistics.median(qps),
+          "queries_per_sec_min": qps[0], "queries_per_sec_max": qps[-1],
+          **busy, "device": smi_line})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -991,6 +1172,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(root))
 
+    from distributed_point_functions_tpu_torch import native
     from distributed_point_functions_tpu_torch.ops import cuda_lib
     from distributed_point_functions_tpu_torch.ops import expand_planes as ep
     from distributed_point_functions_tpu_torch.ops import inner_product_kernels as ipk
@@ -1004,6 +1186,8 @@ def main() -> int:
         DenseDpfPirDatabase,
         DenseDpfPirServer,
     )
+    from distributed_point_functions_tpu_torch.ops.words import to_tensors
+    from distributed_point_functions_tpu_torch.pir import dense_eval
     from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
     from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
         DEFAULT_EXPANSION,
@@ -1015,6 +1199,7 @@ def main() -> int:
     from distributed_point_functions_tpu_torch.pir.dense_eval_planes_v2 import (
         chunk_block_nodes,
     )
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1046,12 +1231,15 @@ def main() -> int:
         probe = start_aes_probe(cuda_lib, probe_dir)
         cuda_lib.library()
         build_s = time.perf_counter() - t0
+        native.get_lib()
+        host_build_s = time.perf_counter() - t0 - build_s
         sass = aes_sass_ops(cuda_lib, probe_dir, probe)
     finally:
         shutil.rmtree(probe_dir, ignore_errors=True)
     gate_ops = {k: aes_word_ops(k) for k in sass}
     aes_ops = {k: min(gate_ops[k], sass[k][0]) for k in sass}
-    emit({"phase": "build", "seconds": build_s,
+    emit({"phase": "build", "seconds": build_s, "host_library_seconds": host_build_s,
+          "host_library_dir": str(native.build_dir().relative_to(root)),
           "probe_seconds": time.perf_counter() - t0,
           "dir": str(cuda_lib.build_dir().relative_to(root)),
           "ptxas": cuda_lib.ptxas_report().splitlines(),
@@ -1490,7 +1678,7 @@ def main() -> int:
 
     # 4. A small database served on the card and by the plain versions.
     small = [rng.bytes(32) for _ in range(1 << 12)]
-    client = DenseDpfPirClient.create(len(small))
+    client = DenseDpfPirClient.create(len(small), encrypt_decrypt.encrypt)
     idx = [int(i) for i in rng.integers(0, len(small), 40)]
     reqs = client.create_plain_requests(idx)
     gpu_db = DenseDpfPirDatabase(small)
@@ -1521,7 +1709,7 @@ def main() -> int:
     db.staged()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    client = DenseDpfPirClient.create(NUM_RECORDS)
+    client = DenseDpfPirClient.create(NUM_RECORDS, encrypt_decrypt.encrypt)
     idx = [int(i) for i in rng.integers(0, NUM_RECORDS, NUM_QUERIES)]
     t0 = time.perf_counter()
     r0, r1 = client.create_plain_requests(idx)
@@ -1589,13 +1777,21 @@ def main() -> int:
     # profiler trace over the wall time of the call).
     for mode in EXPANSION_MODES:
         server = servers[mode]
-        steps = {"stage_keys_ms": [], "expand_ms": [], "inner_product_ms": []}
+        steps = {"stage_keys_ms": [], "expand_ms": [], "inner_product_ms": [],
+                 "stage_keys_numpy_ms": []}
         for _ in range(5):
+            t0 = time.perf_counter()
+            staged_np = to_tensors(stage_keys_numpy(
+                dense_eval, r0.plain_request.dpf_keys, server.walk_levels), dev)
+            torch.cuda.synchronize()
+            steps["stage_keys_numpy_ms"].append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
             staged = stage_keys(
                 r0.plain_request.dpf_keys, server.walk_levels, device=dev)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+            if not all(torch.equal(a, b) for a, b in zip(staged, staged_np)):
+                raise AssertionError("stage_keys: the native walk differs from the numpy walk")
             sel = evaluate_selection_blocks_planes(
                 *staged, expand_levels=server.expand_levels,
                 num_blocks=db.num_selection_blocks, mode=mode)
@@ -1643,7 +1839,13 @@ def main() -> int:
           "batch_ms": statistics.median(times), "batch_ms_all": times,
           "queries_per_sec": NUM_QUERIES / statistics.median(times) * 1e3,
           "device": smi_line})
-    del db_v1, server, servers, db
+    del db_v1, server
+
+    # The Leader/Helper deployment at the same configuration, over the
+    # main path's staged database.
+    launches["two_party"] = two_party_phase(
+        rng, dev, db, records, servers[DEFAULT_EXPANSION].walk_levels, smi_line)
+    del servers, db
 
     # 6. The DPF and DCF evaluation paths.
     dcf_launches = dcf_phase(rng, dev)

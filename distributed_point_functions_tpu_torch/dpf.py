@@ -2,10 +2,12 @@
 
 The port of the JAX package's `dpf.py`:
 
-* **Key generation** runs on the host with Python-int arithmetic and the
-  numpy AES oracle (`ops/aes.py`), O(tree depth) per key, never a hot
-  path: `generate_keys_incremental` for any hierarchy, and the batched
-  `generate_keys_batch` for the dense-PIR key shape.
+* **Key generation** runs on the host, O(tree depth) per key:
+  `generate_keys_incremental` for any hierarchy, with Python-int
+  arithmetic and the numpy AES oracle (`ops/aes.py`), and the batched
+  `generate_keys_batch` for the dense-PIR key shape on the native host
+  library (`native.py`; its numpy twin `_generate_keys_batch_plain` is
+  the plain version the tests hold it against).
 * **Evaluation** runs on the device in bit-plane layout (`[16, 8, G]`,
   32 lanes per word, `ops/aes_bitslice.py`):
   - full-domain and subtree expansion (`evaluate_until`, `evaluate_next`)
@@ -45,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from . import keys as fixed_keys
+from . import native
 from .device import resolve_device
 from .ops import aes, limb
 from .ops.aes_bitslice import (
@@ -401,16 +404,30 @@ class DistributedPointFunction:
     def generate_keys_batch(
         self, alphas: Sequence[int], betas: Sequence, _root_seeds=None
     ) -> Tuple[List[DpfKey], List[DpfKey]]:
-        """Generate key pairs for many (alpha, beta) points at once.
+        """Generate key pairs for many (alpha, beta) points at once, on the
+        native host library (`native.keygen_batch_dense`: all keys' tree
+        levels in lockstep, AES-NI batched over both parties' seeds).
 
-        All keys' tree levels run in lockstep with the batched numpy AES
-        oracle: one AES call per (level, PRG key) for the whole batch.
         `_root_seeds` (uint32[2, n, 4]) injects the two parties' root
-        seeds, so tests can hold the keys against the JAX package's;
+        seeds, so tests can hold the keys against the JAX package's and
+        against the numpy plain version (`_generate_keys_batch_plain`);
         otherwise they are drawn from `secrets`. The dense-PIR key shape
         only (one hierarchy level, `XorType(128)`, domain <= 2^63); other
         shapes take `generate_keys_incremental`.
         """
+        raw, alphas_np, beta_limbs, num_cw = self._batch_inputs(
+            alphas, betas, _root_seeds)
+        n = alphas_np.shape[0]
+        cw8, ctrl8, vc8 = native.keygen_batch_dense(
+            raw.view(np.uint8).reshape(2, n, 16), alphas_np,
+            beta_limbs.view(np.uint8), num_cw)
+        return self._assemble_dense_keys(
+            raw, cw8.view("<u4").reshape(num_cw, n, 4), ctrl8[..., 0],
+            ctrl8[..., 1], vc8.view("<u4"))
+
+    def _batch_inputs(self, alphas, betas, _root_seeds):
+        """Validate a dense-PIR key batch: (root seeds uint32[2, n, 4],
+        alphas uint64[n], betas uint32[n, 4], correction levels)."""
         n = len(alphas)
         if len(betas) != n:
             raise ValueError("alphas and betas must have the same length")
@@ -435,17 +452,25 @@ class DistributedPointFunction:
         alphas_np = np.asarray([int(a) for a in alphas], dtype=np.uint64)
         for b in betas:
             vt.validate(b)
-
         if _root_seeds is not None:
-            raw = np.ascontiguousarray(_root_seeds, dtype=np.uint32)
+            raw = np.ascontiguousarray(_root_seeds, dtype="<u4")
         else:
             raw = np.frombuffer(
                 secrets.token_bytes(16 * 2 * n), dtype="<u4"
             ).reshape(2, n, 4).copy()
-        num_cw = self._tree_levels_needed - 1
-        beta_limbs = np.zeros((n, 4), dtype=np.uint32)
-        for i, b in enumerate(betas):
-            beta_limbs[i] = aes.u128_to_limbs(int(b))
+        beta_limbs = aes.u128s_to_limbs([int(b) for b in betas])
+        return raw, alphas_np, beta_limbs, self._tree_levels_needed - 1
+
+    def _generate_keys_batch_plain(
+        self, alphas: Sequence[int], betas: Sequence, _root_seeds=None
+    ) -> Tuple[List[DpfKey], List[DpfKey]]:
+        """`generate_keys_batch` in numpy: one batched numpy AES call per
+        (level, PRG key). The plain version the tests hold the native
+        keygen against; no serving path calls it."""
+        raw, alphas_np, beta_limbs, num_cw = self._batch_inputs(
+            alphas, betas, _root_seeds)
+        n = alphas_np.shape[0]
+        lds = self.parameters[-1].log_domain_size
 
         seeds = [raw[0], raw[1]]  # per party: uint32[n, 4]
         control = [
@@ -504,37 +529,33 @@ class DistributedPointFunction:
         return self._assemble_dense_keys(raw, cw_seeds, cw_lefts, cw_rights, vc)
 
     def _assemble_dense_keys(self, raw, cw_seeds, cw_lefts, cw_rights, vc):
+        """Both parties' `DpfKey`s from the batch's arrays: raw uint32[2, n,
+        4], cw_seeds uint32[L, n, 4], cw_lefts / cw_rights [L, n] (0/1),
+        vc uint32[n, 4]."""
         n = raw.shape[1]
         num_cw = cw_seeds.shape[0]
+        roots = [aes.limbs_to_u128s(raw[0]), aes.limbs_to_u128s(raw[1])]
+        # Key-major: key i's levels are entries i * L ... i * L + L - 1.
+        cw_ints = aes.limbs_to_u128s(np.swapaxes(cw_seeds, 0, 1))
+        lefts = np.asarray(cw_lefts).astype(bool).T.ravel().tolist()
+        rights = np.asarray(cw_rights).astype(bool).T.ravel().tolist()
+        vcs = aes.limbs_to_u128s(vc)
         keys0: List[DpfKey] = []
         keys1: List[DpfKey] = []
         for i in range(n):
-            cws = [
-                CorrectionWord(
-                    seed=aes.limbs_to_u128(cw_seeds[lvl, i]),
-                    control_left=bool(cw_lefts[lvl, i]),
-                    control_right=bool(cw_rights[lvl, i]),
-                    value_correction=None,
-                )
-                for lvl in range(num_cw)
-            ]
-            last_vc = [aes.limbs_to_u128(vc[i])]
-            keys0.append(
-                DpfKey(
-                    seed=aes.limbs_to_u128(raw[0, i]),
-                    party=0,
-                    correction_words=cws,
-                    last_level_value_correction=last_vc,
-                )
-            )
-            keys1.append(
-                DpfKey(
-                    seed=aes.limbs_to_u128(raw[1, i]),
-                    party=1,
-                    correction_words=[dataclasses.replace(cw) for cw in cws],
-                    last_level_value_correction=list(last_vc),
-                )
-            )
+            lo = i * num_cw
+            for party, out in ((0, keys0), (1, keys1)):
+                out.append(DpfKey(
+                    seed=roots[party][i],
+                    party=party,
+                    correction_words=[
+                        CorrectionWord(seed=s, control_left=cl, control_right=cr)
+                        for s, cl, cr in zip(cw_ints[lo:lo + num_cw],
+                                             lefts[lo:lo + num_cw],
+                                             rights[lo:lo + num_cw])
+                    ],
+                    last_level_value_correction=[vcs[i]],
+                ))
         return keys0, keys1
 
     def generate_keys_incremental(

@@ -143,6 +143,19 @@ def u128_to_limbs(x: int) -> np.ndarray:
     )
 
 
+def u128s_to_limbs(values) -> np.ndarray:
+    """Python ints below 2^128 -> uint32[len(values), 4] little-endian
+    limbs, in one bytes join."""
+    data = b"".join(v.to_bytes(16, "little") for v in values)
+    return np.frombuffer(data, dtype="<u4").astype(np.uint32).reshape(-1, 4)
+
+
+def limbs_to_u128s(limbs) -> list:
+    """uint32[..., 4] little-endian limbs -> a flat list of Python ints."""
+    data = np.ascontiguousarray(limbs, dtype="<u4").tobytes()
+    return [int.from_bytes(data[i:i + 16], "little") for i in range(0, len(data), 16)]
+
+
 def limbs_to_u128(limbs) -> int:
     limbs = np.asarray(limbs, dtype=np.uint64)
     return int(sum(int(limbs[..., i]) << (32 * i) for i in range(4)))

@@ -3,15 +3,19 @@
 The client puts a query's block index in `alpha = index / 128`, so every
 useful leaf of a key's tree lives under the all-zeros prefix of depth
 `log_domain_size - ceil(log2(num_blocks))`. The server walks that shared
-prefix on the host while it stages a key batch (`_walk_zeros_host`, one
-numpy MMO hash per key per level), then the device expands only the
-covering subtree (`dense_eval_planes.py`).
+prefix on the host while it stages a key batch (`_walk_zeros_host`: the
+native host library's seed walk, `native.evaluate_seeds`, with each key's
+own corrections), then the device expands only the covering subtree
+(`dense_eval_planes.py`).
 
-The port of the JAX package's `pir/dense_eval.py` staging half; the host
-walk always uses the numpy MMO oracle (the port has no native library).
-`chunked_pir_inner_products` is the chunked serving tier: one chunk root
-at a time walked down its path bits (K8), its subtree expanded and XORed
-into the result against its span of the database (K1's accumulate entry).
+The port of the JAX package's `pir/dense_eval.py` staging half.
+`stage_keys_host` packs a batch's keys into arrays in bulk (one bytes
+join per field, no per-key, per-level loop). `_walk_zeros_host_plain`,
+the walk in numpy, is the plain version the tests hold the native walk
+against. `chunked_pir_inner_products` is the chunked serving tier: one
+chunk root at a time walked down its path bits (K8), its subtree expanded
+and XORed into the result against its span of the database (K1's
+accumulate entry).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import keys as fixed_keys
+from .. import native
 from ..device import resolve_device
 from ..dpf import DpfKey
 from ..ops import aes
@@ -43,7 +48,24 @@ _CLEAR_LSB = np.array(
 
 def _walk_zeros_host(seeds0, control0, cw_seeds, cw_left, cw_right, levels):
     """Walk the all-zeros prefix (left child each level) on the host for
-    `levels` levels. Numpy in, numpy out."""
+    `levels` levels, on the native host library with per-key corrections.
+    Numpy in (uint32 limbs), numpy out."""
+    sb = aes.limbs_to_bytes_np(seeds0)
+    s, c = native.evaluate_seeds(
+        sb,
+        control0.astype(np.uint8),
+        np.zeros_like(sb),
+        aes.limbs_to_bytes_np(cw_seeds[:levels]),
+        cw_left[:levels].astype(np.uint8),
+        cw_right[:levels].astype(np.uint8),
+        per_seed_cw=True,
+    )
+    return aes.bytes_to_limbs_np(s), c.astype(np.uint32)
+
+
+def _walk_zeros_host_plain(seeds0, control0, cw_seeds, cw_left, cw_right, levels):
+    """`_walk_zeros_host` in numpy (one batched numpy MMO hash a level):
+    the plain version the tests hold the native walk against."""
     seeds = seeds0.copy()
     control = control0.copy()
     for lvl in range(levels):
@@ -69,24 +91,25 @@ def stage_keys_host(keys: Sequence[DpfKey], host_walk_levels: int = 0):
     """
     nk = len(keys)
     num_levels = len(keys[0].correction_words)
-    seeds0 = np.zeros((nk, 4), dtype=np.uint32)
-    control0 = np.zeros((nk,), dtype=np.uint32)
-    cw_seeds = np.zeros((num_levels, nk, 4), dtype=np.uint32)
-    cw_left = np.zeros((num_levels, nk), dtype=np.uint32)
-    cw_right = np.zeros((num_levels, nk), dtype=np.uint32)
-    last_vc = np.zeros((nk, 4), dtype=np.uint32)
-    for k, key in enumerate(keys):
+    for key in keys:
         if len(key.correction_words) != num_levels:
             raise ValueError("all keys must have the same number of levels")
         if len(key.last_level_value_correction) != 1:
             raise ValueError("dense PIR keys carry exactly one leaf value")
-        seeds0[k] = aes.u128_to_limbs(key.seed)
-        control0[k] = key.party
-        last_vc[k] = aes.u128_to_limbs(int(key.last_level_value_correction[0]))
-        for lvl, cw in enumerate(key.correction_words):
-            cw_seeds[lvl, k] = aes.u128_to_limbs(cw.seed)
-            cw_left[lvl, k] = cw.control_left
-            cw_right[lvl, k] = cw.control_right
+    # Key-major: key k's levels are entries k * L ... k * L + L - 1.
+    cws = [cw for key in keys for cw in key.correction_words]
+    seeds0 = aes.u128s_to_limbs([key.seed for key in keys])
+    control0 = np.fromiter((key.party for key in keys), dtype=np.uint32, count=nk)
+    last_vc = aes.u128s_to_limbs(
+        [int(key.last_level_value_correction[0]) for key in keys])
+    cw_seeds = np.ascontiguousarray(aes.u128s_to_limbs(
+        [cw.seed for cw in cws]).reshape(nk, num_levels, 4).transpose(1, 0, 2))
+    cw_left = np.ascontiguousarray(np.fromiter(
+        (cw.control_left for cw in cws), dtype=np.uint32,
+        count=nk * num_levels).reshape(nk, num_levels).T)
+    cw_right = np.ascontiguousarray(np.fromiter(
+        (cw.control_right for cw in cws), dtype=np.uint32,
+        count=nk * num_levels).reshape(nk, num_levels).T)
     if host_walk_levels:
         if host_walk_levels > num_levels:
             raise ValueError(

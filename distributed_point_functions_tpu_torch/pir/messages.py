@@ -1,9 +1,13 @@
-"""PIR messages: the dataclasses of the JAX package's `pir/messages.py`.
+"""PIR messages: the port of the JAX package's `pir/messages.py`.
 
 `PirRequest` wraps one of `PlainRequest` (a batch of DPF keys),
-`LeaderRequest` or `EncryptedHelperRequest`; `PirResponse` carries one
-masked response byte-string per query. The proto wire codec arrives with
-the Leader/Helper roles.
+`LeaderRequest` (the Leader's plain request and the Helper's encrypted
+one) or `EncryptedHelperRequest` (opaque ciphertext); `HelperRequest` is
+a plain request and the one-time pad's seed, the message that travels
+encrypted from the client to the Helper, so it has a wire form
+(`serialize_helper_request`, `parse_helper_request`: the proto3 bytes of
+`DpfPirRequest.HelperRequest`, `serialization.py`). `PirResponse`
+carries one masked response byte-string per query.
 """
 
 from __future__ import annotations
@@ -11,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-from ..dpf import DpfKey
+from ..dpf import DistributedPointFunction, DpfKey
 
 
 @dataclasses.dataclass
@@ -58,3 +62,25 @@ class PirResponse:
 @dataclasses.dataclass
 class DenseDpfPirRequestClientState:
     one_time_pad_seed: bytes
+
+
+def serialize_helper_request(
+    dpf: DistributedPointFunction, request: HelperRequest
+) -> bytes:
+    """The proto3 bytes of `DpfPirRequest.HelperRequest`, equal to the JAX
+    package's and the reference's."""
+    from .. import serialization
+
+    return serialization.serialize_helper_request(dpf, request)
+
+
+def parse_helper_request(
+    dpf: DistributedPointFunction, data: bytes
+) -> HelperRequest:
+    """The inverse of `serialize_helper_request`; empty bytes (an all-default
+    message) are no helper request, as in the JAX package."""
+    from .. import serialization
+
+    if not data:
+        raise ValueError("request does not encrypt a valid HelperRequest")
+    return serialization.parse_helper_request(dpf, data)

@@ -1,11 +1,28 @@
-"""PIR servers: the plain role and the dense server.
+"""PIR servers: the Plain, Leader and Helper roles and the dense server.
 
-The port of the JAX package's `pir/server.py` for the plain role on one
-device. `DenseDpfPirServer` binds the role to the dense database: a
-request's DPF keys are staged with the shared all-zeros prefix walked on
-the host (`dense_eval.stage_keys`), and the planner (`planner.py`) picks
-the tier that serves the batch within the selection-memory budget of the
-capacity model (`capacity/model.py`):
+The port of the JAX package's `pir/server.py` on one device.
+`DpfPirServer` carries the deployment roles of the reference:
+
+* **Plain** answers a plain request (one party's keys) directly.
+* **Leader** takes the client's `LeaderRequest`, hands the encrypted
+  Helper request to an injected `sender`, which must call `while_waiting`
+  (the Leader serves its own share there) before it returns the Helper's
+  masked response, and XORs the two responses.
+* **Helper** decrypts its request with an injected `decrypter`, parses it
+  (`messages.parse_helper_request`), serves the plain share and masks each
+  response with the AES-CTR one-time pad of the client's seed (`prng.py`).
+
+Transport and encryption are callbacks, so any RPC stack and hybrid
+scheme plug in (`crypto/hybrid.py`, `testing/encrypt_decrypt.py`).
+Every role serves its plain share through `handle_plain_request`, the
+same device path.
+
+`DenseDpfPirServer` binds the roles to the dense database: a request's
+DPF keys are staged with the shared all-zeros prefix walked on the host
+(`dense_eval.stage_keys`, on the native host library, which the
+constructor builds so that no request pays for it), and the planner
+(`planner.py`) picks the tier that serves the batch within the
+selection-memory budget of the capacity model (`capacity/model.py`):
 
 * materialized -- the covering subtree is expanded on the device
   (`dense_eval_planes.evaluate_selection_blocks_planes`) and the whole
@@ -23,20 +40,22 @@ tail), "tail" (K6 head, K5 tail) or "level" (K2 per level, K3 at the
 leaves) -- and every tier returns the same bytes. `set_tier_floor` forces
 every server of the process to a tier or a cheaper one. A batch that
 still outgrows the card raises `torch.cuda.OutOfMemoryError`: there is no
-demotion after an out-of-memory error, no fallback. The Leader and Helper
-roles come with `prng.py` and `crypto/`.
+demotion after an out-of-memory error, no fallback.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Callable, List, Optional
 
+from .. import native
 from ..device import resolve_device
 from ..dpf import DistributedPointFunction, DpfParameters
 from ..ops.words import to_numpy
+from ..prng import Aes128CtrSeededPrng, mask_all, xor_bytes
 from ..value_types import XorType
 from . import messages
+from .client import ENCRYPTION_CONTEXT_INFO
 from .database import DenseDpfPirDatabase, words_to_record_bytes
 from .dense_eval import chunked_pir_inner_products, stage_keys
 from .dense_eval_planes import (
@@ -46,6 +65,12 @@ from .dense_eval_planes import (
 )
 from .dense_eval_planes_v2 import streaming_pir_inner_products
 from .planner import CHUNK_GRANULE_LEVELS, TIERS, ServingPlan, plan_dense_serving
+
+# sender(helper_request: PirRequest, while_waiting: Callable[[], None])
+#   -> PirResponse
+ForwardHelperRequestFn = Callable[..., "messages.PirResponse"]
+# decrypter(ciphertext: bytes, context_info: bytes) -> bytes
+DecryptHelperRequestFn = Callable[[bytes, bytes], bytes]
 
 # The process-wide tier floor: index into TIERS of the most expensive tier
 # any dense-PIR plan may take (0: unconstrained).
@@ -69,10 +94,30 @@ def tier_floor() -> str:
 
 
 class DpfPirServer:
-    """Role dispatch shared by DPF-based PIR servers (plain role)."""
+    """Role dispatch shared by DPF-based PIR servers."""
 
     def __init__(self):
         self._role = "plain"
+        self._sender: Optional[ForwardHelperRequestFn] = None
+        self._decrypter: Optional[DecryptHelperRequestFn] = None
+        self._encryption_context_info = ENCRYPTION_CONTEXT_INFO
+
+    def make_leader(self, sender: ForwardHelperRequestFn) -> None:
+        if sender is None:
+            raise ValueError("sender may not be None")
+        self._sender = sender
+        self._role = "leader"
+
+    def make_helper(
+        self,
+        decrypter: DecryptHelperRequestFn,
+        encryption_context_info: bytes = ENCRYPTION_CONTEXT_INFO,
+    ) -> None:
+        if decrypter is None:
+            raise ValueError("decrypter may not be None")
+        self._decrypter = decrypter
+        self._encryption_context_info = encryption_context_info
+        self._role = "helper"
 
     @property
     def role(self) -> str:
@@ -81,10 +126,74 @@ class DpfPirServer:
     def handle_request(
         self, request: "messages.PirRequest"
     ) -> "messages.PirResponse":
-        return self.handle_plain_request(request)
+        if self._role == "plain":
+            return self.handle_plain_request(request)
+        if self._role == "leader":
+            return self._handle_leader_request(request)
+        return self._handle_helper_request(request)
 
     def handle_plain_request(self, request):
         raise NotImplementedError
+
+    def _parse_helper_request(self, data: bytes) -> "messages.HelperRequest":
+        """Decode the decrypted Helper request (the subclass knows the DPF)."""
+        raise NotImplementedError
+
+    def _handle_leader_request(self, request):
+        if request.leader_request is None:
+            raise ValueError("request must be a valid LeaderRequest")
+        leader_request = request.leader_request
+        if leader_request.plain_request is None:
+            raise ValueError("plain_request must be set")
+        if leader_request.encrypted_helper_request is None:
+            raise ValueError("encrypted_helper_request must be set")
+        plain_request = messages.PirRequest(plain_request=leader_request.plain_request)
+        helper_request = messages.PirRequest(
+            encrypted_helper_request=leader_request.encrypted_helper_request)
+
+        # The sender must call while_waiting, which serves the Leader's own
+        # share while the Helper works; a sender that does not is caught
+        # after it returns. An error in the Leader's share propagates out
+        # through the sender.
+        state = {}
+
+        def while_waiting():
+            state["response"] = self.handle_plain_request(plain_request)
+
+        helper_response = self._sender(helper_request, while_waiting)
+        if "response" not in state:
+            raise RuntimeError(
+                "handle_request: while_waiting was not called from the "
+                "sender passed at construction"
+            )
+        hr = helper_response.dpf_pir_response.masked_response
+        lr = state["response"].dpf_pir_response.masked_response
+        if len(hr) != len(lr):
+            raise RuntimeError(
+                f"number of responses from Helper (={len(hr)}) does not "
+                f"match the number of responses from Leader (={len(lr)})"
+            )
+        for i, (h, l) in enumerate(zip(hr, lr)):
+            if len(h) != len(l):
+                raise RuntimeError(
+                    f"response size mismatch at index {i}: got {len(h)} "
+                    f"(Helper) vs. {len(l)} (Leader)"
+                )
+        return messages.PirResponse(dpf_pir_response=messages.DpfPirResponse(
+            masked_response=[xor_bytes(h, l) for h, l in zip(hr, lr)]))
+
+    def _handle_helper_request(self, request):
+        if request.encrypted_helper_request is None:
+            raise ValueError("request must be a valid EncryptedHelperRequest")
+        inner = self._parse_helper_request(self._decrypter(
+            request.encrypted_helper_request.encrypted_request,
+            self._encryption_context_info,
+        ))
+        response = self.handle_plain_request(
+            messages.PirRequest(plain_request=inner.plain_request))
+        return messages.PirResponse(dpf_pir_response=messages.DpfPirResponse(
+            masked_response=mask_all(response.dpf_pir_response.masked_response,
+                                     Aes128CtrSeededPrng(inner.one_time_pad_seed))))
 
 
 class DenseDpfPirServer(DpfPirServer):
@@ -123,6 +232,9 @@ class DenseDpfPirServer(DpfPirServer):
         total_levels = self._dpf._tree_levels_needed - 1
         self._expand_levels = min(k, total_levels)
         self._walk_levels = total_levels - self._expand_levels
+        # Build (or load) the host library that stages and walks the keys
+        # now, so that no request pays for the build.
+        native.get_lib()
 
     @classmethod
     def create_plain(
@@ -130,6 +242,24 @@ class DenseDpfPirServer(DpfPirServer):
         expansion: str = DEFAULT_EXPANSION,
     ) -> "DenseDpfPirServer":
         return cls(database, device=device, expansion=expansion)
+
+    @classmethod
+    def create_leader(
+        cls, database: DenseDpfPirDatabase, sender: ForwardHelperRequestFn,
+        device=None, expansion: str = DEFAULT_EXPANSION,
+    ) -> "DenseDpfPirServer":
+        server = cls(database, device=device, expansion=expansion)
+        server.make_leader(sender)
+        return server
+
+    @classmethod
+    def create_helper(
+        cls, database: DenseDpfPirDatabase, decrypter: DecryptHelperRequestFn,
+        device=None, expansion: str = DEFAULT_EXPANSION,
+    ) -> "DenseDpfPirServer":
+        server = cls(database, device=device, expansion=expansion)
+        server.make_helper(decrypter, ENCRYPTION_CONTEXT_INFO)
+        return server
 
     @property
     def dpf(self) -> DistributedPointFunction:
@@ -150,6 +280,9 @@ class DenseDpfPirServer(DpfPirServer):
     @property
     def walk_levels(self) -> int:
         return self._walk_levels
+
+    def _parse_helper_request(self, data: bytes) -> "messages.HelperRequest":
+        return messages.parse_helper_request(self._dpf, data)
 
     def handle_plain_request(
         self, request: "messages.PirRequest"

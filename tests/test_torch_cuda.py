@@ -22,6 +22,7 @@ from distributed_point_functions_tpu_torch.pir import (
     DenseDpfPirDatabase,
     DenseDpfPirServer,
 )
+from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 
 pytestmark = pytest.mark.cuda
 
@@ -132,7 +133,7 @@ def test_dense_pir_on_the_card_matches_the_plain_server(dev, expansion):
     rng = np.random.default_rng(9)
     recs = [rng.bytes(int(n)) for n in rng.integers(1, 40, 1000)]
     idx = [int(i) for i in rng.integers(0, len(recs), 37)]
-    reqs = DenseDpfPirClient.create(len(recs)).create_plain_requests(idx)
+    reqs = DenseDpfPirClient.create(len(recs), encrypt_decrypt.encrypt).create_plain_requests(idx)
     card = DenseDpfPirServer.create_plain(DenseDpfPirDatabase(recs), expansion=expansion)
     host = DenseDpfPirServer.create_plain(
         DenseDpfPirDatabase(recs, device="cpu"), device="cpu", expansion=expansion

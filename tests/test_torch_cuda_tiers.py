@@ -26,6 +26,7 @@ from distributed_point_functions_tpu_torch.pir import (
     DenseDpfPirDatabase,
     DenseDpfPirServer,
 )
+from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 from distributed_point_functions_tpu_torch.pir import server as server_mod
 
 pytestmark = pytest.mark.cuda
@@ -164,7 +165,7 @@ def test_tiers_on_the_card_match_the_host(dev, tier):
     rng = np.random.default_rng(9)
     records = [rng.bytes(20) for _ in range(3000)]
     idx = [int(i) for i in rng.integers(0, len(records), 40)]
-    reqs = DenseDpfPirClient.create(len(records)).create_plain_requests(idx)
+    reqs = DenseDpfPirClient.create(len(records), encrypt_decrypt.encrypt).create_plain_requests(idx)
     previous = set_default_capacity_model(CapacityModel(selection_budget=4096))
     server_mod.set_tier_floor(tier if tier == "chunked" else None)
     try:

@@ -35,6 +35,7 @@ from distributed_point_functions_tpu_torch.pir import (
     DenseDpfPirDatabase,
     DenseDpfPirServer,
 )
+from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 from distributed_point_functions_tpu_torch.pir import messages
 from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys_host
 from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
@@ -65,7 +66,7 @@ def case():
     rng = np.random.default_rng(1212)
     records = [rng.bytes(RECORD_BYTES) for _ in range(NUM_RECORDS)]
     idx = [int(i) for i in rng.integers(0, NUM_RECORDS, NUM_QUERIES)]
-    reqs = DenseDpfPirClient.create(NUM_RECORDS).create_plain_requests(idx)
+    reqs = DenseDpfPirClient.create(NUM_RECORDS, encrypt_decrypt.encrypt).create_plain_requests(idx)
     jdb = JDatabase.Builder()
     for r in records:
         jdb.insert(r)
@@ -225,7 +226,7 @@ def test_plain_server_reconstructs_small_databases(size):
         DenseDpfPirDatabase(recs, device="cpu"), device="cpu"
     )
     idx = [0, size - 1, size // 2]
-    r0, r1 = DenseDpfPirClient.create(size).create_plain_requests(idx)
+    r0, r1 = DenseDpfPirClient.create(size, encrypt_decrypt.encrypt).create_plain_requests(idx)
     s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
     s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
     for a, b, i in zip(s0, s1, idx):
@@ -241,7 +242,7 @@ def test_server_validates_requests():
         server.handle_plain_request(
             messages.PirRequest(plain_request=messages.PlainRequest(dpf_keys=[]))
         )
-    keys, _ = DenseDpfPirClient.create(300).create_plain_requests([1])
+    keys, _ = DenseDpfPirClient.create(300, encrypt_decrypt.encrypt).create_plain_requests([1])
     bad = dataclasses.replace(keys.plain_request.dpf_keys[0], party=2)
     with pytest.raises(ValueError):
         server.handle_plain_request(

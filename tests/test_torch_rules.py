@@ -1,7 +1,7 @@
 """The port's rules: no JAX, CUDA by default, no fallback.
 
-* Importing every module of the port loads neither `jax` nor the JAX
-  package (checked in a fresh interpreter).
+* Importing every module of the port loads neither `jax`, the JAX
+  package nor `google.protobuf` (checked in a fresh interpreter).
 * Without a CUDA device, the default device raises; nothing falls back
   to the CPU on its own.
 * CPU tensors go through the plain versions and leave the kernel launch
@@ -35,6 +35,7 @@ from distributed_point_functions_tpu_torch.pir import (
     DenseDpfPirDatabase,
     DenseDpfPirServer,
 )
+from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
 from distributed_point_functions_tpu_torch.ops.words import to_numpy
 from distributed_point_functions_tpu_torch.value_types import IntType
@@ -57,7 +58,8 @@ def test_import_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'distributed_point_functions_tpu'))\n"
+        "('jax', 'jaxlib', 'distributed_point_functions_tpu') "
+        "or m.startswith('google.protobuf'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('distributed_point_functions_tpu_torch')]))\n"
     )
@@ -86,7 +88,7 @@ def test_server_default_device_does_not_fall_back(no_cuda):
     db = DenseDpfPirDatabase([b"x"] * 10, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DenseDpfPirServer.create_plain(db)
-    keys, _ = DenseDpfPirClient.create(10).create_plain_requests([3])
+    keys, _ = DenseDpfPirClient.create(10, encrypt_decrypt.encrypt).create_plain_requests([3])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage_keys(keys.plain_request.dpf_keys)
 
@@ -137,7 +139,7 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     server = DenseDpfPirServer.create_plain(
         DenseDpfPirDatabase(recs, device="cpu"), device="cpu"
     )
-    r0, r1 = DenseDpfPirClient.create(300).create_plain_requests([0, 299])
+    r0, r1 = DenseDpfPirClient.create(300, encrypt_decrypt.encrypt).create_plain_requests([0, 299])
     s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
     s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
     assert [bytes(a ^ b for a, b in zip(x, y)) for x, y in zip(s0, s1)] == [
@@ -159,7 +161,7 @@ def test_every_expansion_mode_counts_no_launch_on_cpu(expansion):
     server = DenseDpfPirServer.create_plain(
         DenseDpfPirDatabase(recs, device="cpu"), device="cpu", expansion=expansion
     )
-    r0, r1 = DenseDpfPirClient.create(len(recs)).create_plain_requests([7, 5000])
+    r0, r1 = DenseDpfPirClient.create(len(recs), encrypt_decrypt.encrypt).create_plain_requests([7, 5000])
     s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
     s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
     assert [bytes(a ^ b for a, b in zip(x, y)) for x, y in zip(s0, s1)] == [
@@ -208,8 +210,19 @@ def test_wrappers_raise_for_other_devices():
     "module",
     ["ops/expand_planes.py", "ops/aes_bitslice.py", "ops/inner_product_kernels.py",
      "pir/dense_eval_planes.py", "pir/database.py", "pir/server.py", "dpf.py",
-     "dcf.py", "value_types.py", "ops/limb.py"],
+     "dcf.py", "value_types.py", "ops/limb.py", "pir/dense_eval.py",
+     "pir/client.py", "pir/messages.py", "prng.py", "serialization.py"],
 )
 def test_serving_path_has_no_try(module):
     tree = ast.parse((PORT_DIR / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize(
+    "module", ["native.py", "dpf.py", "pir/dense_eval.py", "pir/server.py",
+               "pir/client.py", "prng.py", "serialization.py"])
+def test_host_path_reads_no_environment(module):
+    """No environment variable selects the host library's numpy twins or
+    anything else on the host side of the main path."""
+    text = (PORT_DIR / module).read_text()
+    assert "os.environ" not in text and "getenv" not in text

@@ -72,6 +72,7 @@ from distributed_point_functions_tpu_torch.pir import (
     DenseDpfPirDatabase,
     DenseDpfPirServer,
 )
+from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 from distributed_point_functions_tpu_torch.pir import server as server_mod
 from distributed_point_functions_tpu_torch.pir.dense_eval import (
     chunked_pir_inner_products,
@@ -305,7 +306,7 @@ def small():
     rng = np.random.default_rng(2404)
     records = [rng.bytes(12) for _ in range(200)]
     idx = [int(i) for i in rng.integers(0, len(records), NUM_QUERIES)]
-    reqs = DenseDpfPirClient.create(len(records)).create_plain_requests(idx)
+    reqs = DenseDpfPirClient.create(len(records), encrypt_decrypt.encrypt).create_plain_requests(idx)
     jreqs = [jmessages.PirRequest(plain_request=jmessages.PlainRequest(
         dpf_keys=[_jax_key(k) for k in r.plain_request.dpf_keys])) for r in reqs]
     with pytest.MonkeyPatch.context() as mp:
@@ -398,7 +399,7 @@ def wide():
     16), 40 queries; party 0's staged keys and its materialized result."""
     rng = np.random.default_rng(1500)
     records = [rng.bytes(8) for _ in range(1500)]
-    reqs = DenseDpfPirClient.create(len(records)).create_plain_requests(
+    reqs = DenseDpfPirClient.create(len(records), encrypt_decrypt.encrypt).create_plain_requests(
         [int(i) for i in rng.integers(0, len(records), NUM_QUERIES)])
     db = DenseDpfPirDatabase(records, device="cpu")
     walk = DenseDpfPirServer(db, device="cpu").walk_levels

@@ -40,11 +40,13 @@ def main() -> int:
         print("torch_tier_peak_probe: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.root).resolve()))
+    from distributed_point_functions_tpu_torch.dpf import DistributedPointFunction, DpfParameters
     from distributed_point_functions_tpu_torch.pir import (
-        DenseDpfPirClient,
         DenseDpfPirDatabase,
         DenseDpfPirServer,
+        messages,
     )
+    from distributed_point_functions_tpu_torch.value_types import XorType
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -56,7 +58,13 @@ def main() -> int:
     db = DenseDpfPirDatabase(records)
     db.staged()
     idx = [int(i) for i in rng.integers(0, RECORDS, QUERIES)]
-    r0, r1 = DenseDpfPirClient.create(RECORDS).create_plain_requests(idx)
+    # The client's plain requests, built from the DPF's batched keygen, an
+    # API every tree of the port has (the client's constructor changed).
+    dpf = DistributedPointFunction.create(
+        DpfParameters((RECORDS - 1).bit_length(), XorType(128)))
+    r0, r1 = (messages.PirRequest(plain_request=messages.PlainRequest(keys))
+              for keys in dpf.generate_keys_batch([i // 128 for i in idx],
+                                                  [1 << (i % 128) for i in idx]))
     server = DenseDpfPirServer.create_plain(db, expansion=args.expansion)
     plan = server._plan_serving(QUERIES)
     s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
