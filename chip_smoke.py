@@ -114,10 +114,37 @@ non-zero before printing a result. Phases, one JSON line each:
      the first (resumed through one K8 launch) reconstructs at every level and
      equals its own full-domain evaluation at the last; one more
      `evaluate_next` at 40 prefixes walks its narrow levels on K8.
+   - `mic`: the Multiple Interval Containment gate at log_group_size 64
+     (the Z_2^64 ring of eprint 2020/1392's secure inference), 10
+     intervals [100i, 100i + 50], 16,384 masked inputs (one 128 x 128
+     activation map) under 64 key pairs from the port's `gen`, each with
+     its own r_in and r_out (keygen ms per pair). Each party's batch is
+     staged once (each DCF key repeated 20 times on the device, equal to
+     the repeated key list staged on the host, both timed) and evaluated
+     by `batch_eval_device` as one DCF batch of the p and q' points: K8 = 1
+     and K3 = 1 a party batch. Every input and interval must reconstruct
+     [p_j <= x <= q_j] + r_out_j mod 2^64, and the first 256 inputs equal
+     a `device="cpu"` gate's; batch ms (median and all runs), evaluations
+     per second, the device's idle share. Then `mic_bench_shape`: the JAX
+     package's `bench_mic` shape (a 2^20 group, 16 keys).
+   - `dpf_value_types`: a DPF key pair over 2^20 with
+     `IntModNType(32, 4294967291)` (one block a leaf, 20 tree levels,
+     hashed at the expansion's exit) and with `TupleType([IntType(32),
+     IntModNType(32, 4294967291)])` (two blocks a leaf: the expansion
+     exits with the seeds and one K3 launch hashes both blocks; tail mode
+     runs K6 and K2 without K5), `evaluate_until(0, [], ctx)` in every
+     mode with the launches `expansion_launches` derives: card equal to
+     the plain versions and the modes to one another, the shares summing
+     to beta at alpha and 0 elsewhere in each element's group;
+     `evaluate_at` at 1,024 points equal to the full domain there; ms
+     per evaluation beside the IntType(64) line's. Then
+     `int_mod_n_sample`: 2^20 blocks sampled as `IntModNType(32,
+     1000003)` on the card (`bench_int_mod_n`'s shape), equal to the
+     host face, in ms.
    Every call's values in these phases must also equal the plain
-   versions' (a `device="cpu"` DPF or DCF, in the same expansion mode)
-   on the same keys and points: off alpha's path both parties hold the
-   same seeds, so a kernel error they share would still reconstruct.
+   versions' (a `device="cpu"` DPF, DCF or gate, in the same expansion
+   mode) on the same keys and points: off alpha's path both parties hold
+   the same seeds, so a kernel error they share would still reconstruct.
 7. Dense PIR's other inner product and its serving tiers (the kernel
    lines and the probe print after phase 3's, `main_path_v1` after phase
    5's, the tiers after phase 6), the paths each run with every launch
@@ -434,6 +461,22 @@ FD_LDS = 20
 HIERARCHY = (8, 14, 20)
 PREFIXES = 64
 POINTS = 1024
+# The MIC gate: the Z_2^64 ring of eprint 2020/1392's secure inference, the
+# JAX package's `bench_mic` big shape (10 intervals [100i, 100i + 50]),
+# one 128 x 128 activation map of masked inputs, 64 distinct key pairs;
+# and the JAX benchmark's own shape (a 2^20 group, 16 keys).
+MIC_LGS = 64
+MIC_INTERVALS = 10
+MIC_INPUTS = 128 * 128
+MIC_KEYS = 64
+MIC_PLAIN_CHECK = 256
+MIC_BENCH_LGS = 20
+MIC_BENCH_KEYS = 16
+# The sampled value types through the DPF (the JAX package's test zoo) and
+# `bench_int_mod_n`'s sampling shape.
+P32 = 4294967291
+INT_MOD_N_SAMPLES = 1 << 20
+INT_MOD_N_MODULUS = 1000003
 
 
 def as_u64(shares):
@@ -460,8 +503,9 @@ def host_ms(fn, reps: int) -> list:
 
 def device_busy(fn) -> dict:
     """One call under torch.profiler: its wall and device-busy ms, the
-    device's idle share, and the operations that took the most host time
-    (name, calls, self host ms, device ms)."""
+    device's idle share, the operations that took the most host time
+    (name, calls, self host ms, device ms) and those that took the most
+    device time (name, calls, self device ms)."""
     import torch
 
     with torch.profiler.profile(
@@ -473,11 +517,15 @@ def device_busy(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.device_time for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    top = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:8]
+    averages = prof.key_averages()
+    top = sorted(averages, key=lambda a: -a.self_cpu_time_total)[:8]
+    top_device = sorted(averages, key=lambda a: -a.self_device_time_total)[:8]
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top_host_ops": [[a.key, a.count, a.self_cpu_time_total / 1e3,
-                              a.device_time_total / 1e3] for a in top]}
+                              a.device_time_total / 1e3] for a in top],
+            "top_device_ops": [[a.key, a.count, a.self_device_time_total / 1e3]
+                               for a in top_device]}
 
 
 def counted(fn, want: dict, what: str) -> dict:
@@ -558,12 +606,17 @@ def dcf_phase(rng, dev) -> dict:
     return first
 
 
-def expansion_launches(mode: str, levels: int, columns: int = 1) -> dict:
+def expansion_launches(mode: str, levels: int, columns: int = 1,
+                       hashed: bool = True) -> dict:
     """Launches of one key's plane expansion over `levels` levels from
-    `columns` word columns (`dense_eval_planes.expand_planned`)."""
+    `columns` word columns (`dense_eval_planes.expand_planned`). A level
+    whose leaves take more than one block (`hashed=False`) leaves the
+    expansion as seeds (K4's tail without its hash; tail mode without K5)
+    and hashes them in one K3 launch."""
     from distributed_point_functions_tpu_torch.pir.dense_eval_planes import expansion_plan
 
-    head, tail, _ = expansion_plan(mode, columns, levels)
+    tail_levels = {"tail_levels": 0} if mode == "tail" and not hashed else {}
+    head, tail, _ = expansion_plan(mode, columns, levels, **tail_levels)
     head_k, tail_k = (("walk_descend", "walk_descend") if mode == "walk"
                       else ("expand_head", "expand_tail"))
     out = {}
@@ -573,7 +626,7 @@ def expansion_launches(mode: str, levels: int, columns: int = 1) -> dict:
         out["expand_level"] = levels - head - tail
     if tail:
         out[tail_k] = out.get(tail_k, 0) + 1
-    else:
+    if not tail or not hashed:
         out["value_hash"] = 1
     return out
 
@@ -605,7 +658,7 @@ def dpf_full_domain_phase(rng, dev) -> dict:
             for m in EXPANSION_MODES}
     keys = dpfs["walk"].generate_keys(alpha, beta)
     plane_levels = dpfs["walk"]._hierarchy_to_tree[0] - 5
-    shares = {}
+    shares, ms_per_mode = {}, {}
     for mode, dpf in dpfs.items():
         def run(k, dpf=dpf):
             return dpf.evaluate_until(0, [], dpf.create_evaluation_context(k))
@@ -626,7 +679,7 @@ def dpf_full_domain_phase(rng, dev) -> dict:
             raise AssertionError(f"dpf full domain ({mode}): shares do not reconstruct")
         shares[mode] = out
         times = host_ms(lambda: run(keys[0]), 7)
-        ms = statistics.median(times)
+        ms = ms_per_mode[mode] = statistics.median(times)
         emit({"phase": "dpf_full_domain", "expansion": mode, "log_domain_size": FD_LDS,
               "value_type": "IntType(64)", "values": 1 << FD_LDS, "reconstructed": True,
               "card_equals_plain": True, "launches": launches, "ms_per_evaluation": ms, "ms_all": times,
@@ -635,7 +688,7 @@ def dpf_full_domain_phase(rng, dev) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(shares[mode], shares["walk"])):
             raise AssertionError(f"dpf full domain: {mode} differs from walk")
     return {"dpf": dpfs["walk"], "keys": keys, "alpha": alpha, "beta": beta,
-            "shares": shares["walk"]}
+            "shares": shares["walk"], "ms": ms_per_mode}
 
 
 def dpf_point_phase(rng, dev, full: dict) -> None:
@@ -777,6 +830,250 @@ def dpf_point_phase(rng, dev, full: dict) -> None:
           "evaluate_next_40_prefixes": {"launches": narrow_launches, "narrow_levels": 2},
           "evaluate_next_chain_ms": statistics.median(chain_times),
           "evaluate_next_chain_ms_all": chain_times})
+
+
+def mic_phase(rng, dev) -> dict:
+    """The MIC gate on the card at log_group_size 64 (MIC_* above): 64
+    key pairs from the port's `gen`, each with its own r_in and r_out
+    (keygen timed per pair); 16,384 masked inputs, input i = (plain_i +
+    r_in) mod 2^64 under pair i mod 64 for uniform plain_i. Each party's
+    batch is staged once (`stage_keys`: each DCF key staged, then repeated
+    2 x 10 times on the device, which must equal the repeated key list
+    staged on the host, timed beside it) and evaluated by
+    `batch_eval_device`: one DCF batch of 327,680 points, so one K8 walk of
+    63 levels with 64 stops and one K3 launch a party batch. Both parties'
+    shares must sum to [p_j <= plain_i <= q_j] + r_out_j mod 2^64 for every
+    input and interval, and each party's first 256 inputs must equal a
+    `device="cpu"` gate's on the same keys and points. Then the JAX
+    package's `bench_mic` shape (a 2^20 group, 16 keys at inputs 0-15)
+    through `batch_eval` and `batch_eval_device`. Returns the launches."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.fss_gates import (
+        Interval,
+        MicParameters,
+        MultipleIntervalContainmentGate,
+    )
+    from distributed_point_functions_tpu_torch.ops.words import to_numpy
+
+    ni = MIC_INTERVALS
+
+    def gate_of(lgs, device):
+        return MultipleIntervalContainmentGate.create(MicParameters(
+            lgs, [Interval(100 * i, 100 * i + 50) for i in range(ni)]), device=device)
+
+    gate, cpu = gate_of(MIC_LGS, dev), gate_of(MIC_LGS, "cpu")
+    top = (1 << MIC_LGS) - 1
+    r_in = rng.integers(0, top, MIC_KEYS, dtype=np.uint64, endpoint=True)
+    r_out = rng.integers(0, top, (MIC_KEYS, ni), dtype=np.uint64, endpoint=True)
+    pairs, keygen_ms = [], []
+    for i in range(MIC_KEYS):
+        t0 = time.perf_counter()
+        pairs.append(gate.gen(int(r_in[i]), [int(r) for r in r_out[i]]))
+        keygen_ms.append((time.perf_counter() - t0) * 1e3)
+    pair = np.arange(MIC_INPUTS) % MIC_KEYS
+    plain = rng.integers(0, top, MIC_INPUTS, dtype=np.uint64, endpoint=True)
+    xs = plain + r_in[pair]  # mod 2^64
+    keys = [[pairs[j][party] for j in pair] for party in (0, 1)]
+
+    stage_ms, staged = [], []
+    for party in (0, 1):
+        t0 = time.perf_counter()
+        staged.append(gate.stage_keys(keys[party]))
+        torch.cuda.synchronize()
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+    # The repeat per interval on the device against the repeated key list
+    # staged on the host.
+    dcf_keys = [k.dcf_key for k in keys[0]]
+    base = gate.dcf.stage_keys(dcf_keys)
+    repeat_times = host_ms(lambda: base.repeat(2 * ni), 5)
+    t0 = time.perf_counter()
+    host = gate.dcf.stage_keys([k for k in dcf_keys for _ in range(2 * ni)])
+    torch.cuda.synchronize()
+    host_repeat_ms = (time.perf_counter() - t0) * 1e3
+    repeated = base.repeat(2 * ni)
+
+    def fields(b):
+        return [b.parties, b.state, b.ctrl, b.cw_planes, b.cw_left, b.cw_right,
+                *b.value_corrections]
+
+    if repeated.n != host.n or not all(
+            torch.equal(a, b) for a, b in zip(fields(repeated), fields(host))):
+        raise AssertionError("mic: the device repeat differs from the host's staging")
+    del base, host, repeated
+
+    def run(party):
+        return gate.batch_eval_device(None, xs, staged=staged[party])
+
+    run(0)  # warm-up
+    out = []
+    launches = counted(lambda: out.extend(run(party) for party in (0, 1)),
+                       {"path_level": 2, "value_hash": 2}, "mic")
+    limbs = [to_numpy(o) for o in out]
+    u64 = [a[..., 0].astype(np.uint64) | (a[..., 1].astype(np.uint64) << np.uint64(32))
+           for a in limbs]
+    lower = np.array([100 * i for i in range(ni)], dtype=np.uint64)
+    inside = (plain[:, None] >= lower) & (plain[:, None] <= lower + np.uint64(50))
+    want = inside.astype(np.uint64) + r_out[pair]
+    agree = (u64[0] + u64[1]) == want
+    reconstructed = int(agree.sum())
+    if reconstructed != MIC_INPUTS * ni or any(a[..., 2:].any() for a in limbs):
+        raise AssertionError(
+            f"mic: {reconstructed} of {MIC_INPUTS * ni} shares reconstruct")
+    for party in (0, 1):
+        plain_shares = cpu.batch_eval_device(keys[party][:MIC_PLAIN_CHECK],
+                                             xs[:MIC_PLAIN_CHECK])
+        if not torch.equal(out[party][:MIC_PLAIN_CHECK].cpu(), plain_shares):
+            raise AssertionError("mic: card and plain shares differ")
+    times = host_ms(lambda: run(0), 10)
+    batch_ms = statistics.median(times)
+    emit({"phase": "mic", "log_group_size": MIC_LGS, "intervals": ni,
+          "inputs": MIC_INPUTS, "key_pairs": MIC_KEYS,
+          "reconstructed": reconstructed, "of": MIC_INPUTS * ni,
+          "card_equals_plain_first": MIC_PLAIN_CHECK, "launches": launches,
+          "launches_per_party_batch": {"path_level": 1, "value_hash": 1},
+          "keygen_ms_per_pair_median": statistics.median(keygen_ms),
+          "keygen_ms_per_pair_all": keygen_ms,
+          "stage_ms": stage_ms, "repeat_on_device_ms": statistics.median(repeat_times),
+          "repeat_on_device_ms_all": repeat_times,
+          "repeated_list_staged_on_host_ms": host_repeat_ms,
+          "batch_ms": batch_ms, "batch_ms_all": times,
+          "evaluations_per_sec": MIC_INPUTS * ni / batch_ms * 1e3,
+          **device_busy(lambda: run(0))})
+    del staged, out
+
+    bench = gate_of(MIC_BENCH_LGS, dev)
+    k0, _ = bench.gen(7, [0] * ni)
+    bench_keys, bench_xs = [k0] * MIC_BENCH_KEYS, list(range(MIC_BENCH_KEYS))
+    bench.batch_eval(bench_keys, bench_xs)  # warm-up
+    ints = host_ms(lambda: bench.batch_eval(bench_keys, bench_xs), 15)
+    dev_times = host_ms(lambda: bench.batch_eval_device(bench_keys, bench_xs), 15)
+    emit({"phase": "mic_bench_shape", "log_group_size": MIC_BENCH_LGS, "intervals": ni,
+          "keys": MIC_BENCH_KEYS, "batch_eval_ms": statistics.median(ints),
+          "batch_eval_ms_all": ints,
+          "batch_eval_device_ms": statistics.median(dev_times),
+          "batch_eval_device_ms_all": dev_times,
+          "evaluations_per_sec": MIC_BENCH_KEYS * ni / statistics.median(ints) * 1e3})
+    return launches
+
+
+def dpf_value_types_phase(rng, dev, full: dict) -> None:
+    """The sampled value types through the DPF at configs[0]'s 2^20 domain:
+    `IntModNType(32, 4294967291)` (one block a leaf, no packing: 20 tree
+    levels, the fused hash at the expansion's exit) and `TupleType([IntType(32),
+    IntModNType(32, 4294967291)])` (two blocks a leaf: the expansion exits
+    with the leaf seeds, K4's tail without its hash or, in tail mode, K6 and
+    K2 without K5, and one K3 launch hashes seed + j for j < 2). Each key
+    pair runs `evaluate_until(0, [], ctx)` in every expansion mode with the
+    launches `expansion_launches` derives; the card must equal the plain
+    versions on the host (both keys in walk mode, party 1's in the others),
+    the modes one another, and the parties' shares must sum, element by
+    element in each element's group, to beta at alpha and 0 elsewhere.
+    `evaluate_at` at 1,024 points (one K8 and one K3 launch a key) must
+    equal the full-domain values there. Then `bench_int_mod_n`'s shape:
+    2^20 blocks sampled as `IntModNType(32, 1000003)` on the card
+    (`dev_from_value_blocks`), equal to the host face's `block % N`."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.dpf import DistributedPointFunction, DpfParameters
+    from distributed_point_functions_tpu_torch.ops import aes, limb
+    from distributed_point_functions_tpu_torch.ops.words import to_numpy, to_tensor
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import EXPANSION_MODES
+    from distributed_point_functions_tpu_torch.value_types import (
+        IntModNType,
+        IntType,
+        TupleType,
+        tree_leaves,
+        tree_map,
+    )
+
+    def equal(a, b) -> bool:
+        a, b = tree_leaves(a), tree_leaves(b)
+        return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    for label, vt in (("IntModNType(32, 4294967291)", IntModNType(32, P32)),
+                      ("TupleType([IntType(32), IntModNType(32, 4294967291)])",
+                       TupleType([IntType(32), IntModNType(32, P32)]))):
+        params = DpfParameters(FD_LDS, vt)
+        dpfs = {m: with_expansion(DistributedPointFunction.create(params, device=dev), m)
+                for m in EXPANSION_MODES}
+        cpus = {m: with_expansion(DistributedPointFunction.create(params, device="cpu"), m)
+                for m in EXPANSION_MODES}
+        dpf = dpfs["walk"]
+        alpha = int(rng.integers(0, 1 << FD_LDS))
+        beta = (int(rng.integers(1, P32)) if isinstance(vt, IntModNType)
+                else (int(rng.integers(1, 1 << 32)), int(rng.integers(1, P32))))
+        keys = dpf.generate_keys(alpha, beta)
+        num_blocks = dpf._blocks_needed[0]
+        plane_levels = dpf._hierarchy_to_tree[0] - 5
+        shares, ms, launches = {}, {}, {}
+        for mode, mode_dpf in dpfs.items():
+            def run(k, d=mode_dpf):
+                return d.evaluate_until(0, [], d.create_evaluation_context(k))
+
+            run(keys[0])  # warm-up
+            out = []
+            want = {k: 2 * v for k, v in expansion_launches(
+                mode, plane_levels, hashed=num_blocks == 1).items()}
+            launches[mode] = counted(lambda: out.extend(run(k) for k in keys), want,
+                                     f"dpf_value_types {label} ({mode})")
+            cpu = cpus[mode]
+            for party in ((0, 1) if mode == "walk" else (1,)):
+                plain = cpu.evaluate_until(0, [], cpu.create_evaluation_context(keys[party]))
+                if not equal(out[party], plain):
+                    raise AssertionError(f"dpf_value_types {label} ({mode}): card and plain differ")
+            shares[mode] = out
+            times = host_ms(lambda: run(keys[0]), 7)
+            ms[mode] = statistics.median(times)
+        for mode in EXPANSION_MODES:
+            if not all(equal(a, b) for a, b in zip(shares[mode], shares["walk"])):
+                raise AssertionError(f"dpf_value_types {label}: {mode} differs from walk")
+        total = vt.dev_add(*shares["walk"])
+        for got, want in zip(tree_leaves(total), tree_leaves(vt.dev_const(beta, (), dev))):
+            nonzero = (got != 0).any(dim=-1).nonzero().flatten().tolist()
+            if got.shape[0] != 1 << FD_LDS or nonzero != [alpha] or not torch.equal(got[alpha], want):
+                raise AssertionError(f"dpf_value_types {label}: shares do not reconstruct")
+        pts = [int(x) for x in rng.integers(0, 1 << FD_LDS, POINTS)]
+        pts[:2] = [alpha, alpha ^ 1]
+        dpf.evaluate_at(keys[0], 0, pts)  # warm-up
+        at = []
+        at_launches = counted(lambda: at.extend(dpf.evaluate_at(k, 0, pts) for k in keys),
+                              {"path_level": 2, "value_hash": 2},
+                              f"dpf_value_types {label} evaluate_at")
+        idx = torch.tensor(pts, device=dev)
+        for got, whole in zip(at, shares["walk"]):
+            if not equal(got, tree_map(lambda x: x[idx], whole)):
+                raise AssertionError(f"dpf_value_types {label}: evaluate_at differs")
+        if not equal(at[0], cpus["walk"].evaluate_at(keys[0], 0, pts)):
+            raise AssertionError(f"dpf_value_types {label}: evaluate_at card and plain differ")
+        at_times = host_ms(lambda: dpf.evaluate_at(keys[0], 0, pts), 15)
+        emit({"phase": "dpf_value_types", "value_type": label, "log_domain_size": FD_LDS,
+              "blocks_per_leaf": num_blocks, "tree_levels": dpf._hierarchy_to_tree[0],
+              "hashed_at_exit": num_blocks == 1, "values": 1 << FD_LDS,
+              "reconstructed": True, "card_equals_plain": True, "modes_equal": True,
+              "launches": launches, "ms_per_evaluation": ms,
+              "int64_ms_per_evaluation": full["ms"],
+              "evaluate_at_points": POINTS, "evaluate_at_launches": at_launches,
+              "evaluate_at_ms": statistics.median(at_times), "evaluate_at_ms_all": at_times,
+              **device_busy(lambda: dpfs["walk"].evaluate_until(
+                  0, [], dpfs["walk"].create_evaluation_context(keys[0])))})
+
+    vt = IntModNType(32, INT_MOD_N_MODULUS)
+    blocks_np = rng.integers(0, 1 << 32, (INT_MOD_N_SAMPLES, 4), dtype=np.uint32)
+    blocks = to_tensor(blocks_np, dev)
+
+    def sample():
+        return vt.dev_from_value_blocks(blocks[:, None, :])
+
+    host = np.array([v % INT_MOD_N_MODULUS for v in aes.limbs_to_u128s(blocks_np)],
+                    dtype=np.uint32)
+    if not np.array_equal(to_numpy(sample())[:, 0, 0], host):
+        raise AssertionError("int_mod_n sampling: card and host differ")
+    emit({"phase": "int_mod_n_sample", "value_type": f"IntModNType(32, {INT_MOD_N_MODULUS})",
+          "blocks": INT_MOD_N_SAMPLES, "card_equals_host": True,
+          "dev_sample_ms": cuda_time_ms(sample, reps=20),
+          "divmod_const_ms": cuda_time_ms(
+              lambda: limb.divmod_const(blocks, INT_MOD_N_MODULUS, 4), reps=20)})
 
 
 def ptxas_table(report: str) -> dict:
@@ -1851,6 +2148,11 @@ def main() -> int:
     dcf_launches = dcf_phase(rng, dev)
     full = dpf_full_domain_phase(rng, dev)
     dpf_point_phase(rng, dev, full)
+    # The FSS layer: its own generator, so the later phases' data stay as
+    # they were.
+    fss_rng = np.random.default_rng(SEED + 10)
+    mic_phase(fss_rng, dev)
+    dpf_value_types_phase(fss_rng, dev, full)
 
     # 7. Dense PIR's serving tiers at BASELINE configs[2].
     tier_counts = tiers_phase(rng, dev)

@@ -15,6 +15,11 @@ of 0 otherwise (Algorithm 7 of eprint 2022/866, the reference's
   whole batch) with `evaluation_points_rightshift=1`, adding level i's value
   wherever bit (log_domain_size - 1 - i) of x is 0.
 
+Any value type of `value_types.py` serves as beta; a `TupleType`'s shares
+come back as a tuple of limb tensors. A staged batch repeats each key on
+the device with `StagedKeyBatch.repeat` (the MIC gate evaluates every key
+once per interval).
+
 There is one engine and no fallback.
 """
 
@@ -24,8 +29,29 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from .dpf import DistributedPointFunction, DpfKey, DpfParameters
+from .dpf import (
+    DistributedPointFunction,
+    DpfKey,
+    DpfParameters,
+    point_bits,
+    points_to_limbs,
+)
+from .ops.words import to_tensor
 from .value_types import ValueType
+
+
+def points_array(points, bits: int, message) -> np.ndarray:
+    """Points of a domain of 2^bits as a numpy array: uint64 up to 2^64
+    (a uint64 array passes as it is), Python ints (object) above. A point
+    outside the domain raises ValueError(message(point))."""
+    if isinstance(points, np.ndarray) and points.dtype == np.uint64 and bits <= 64:
+        if bits < 64 and len(points) and int(points.max()) >> bits:
+            raise ValueError(message(int(points[np.argmax(points >> np.uint64(bits))])))
+        return points
+    for x in points:
+        if not (0 <= x < (1 << bits)):
+            raise ValueError(message(x))
+    return np.array([int(x) for x in points], dtype=np.uint64 if bits <= 64 else object)
 
 
 class DcfKey:
@@ -78,21 +104,21 @@ class DistributedComparisonFunction:
 
     def batch_evaluate(self, keys: Sequence[DcfKey],
                        evaluation_points: Sequence[int], staged=None):
-        """Evaluate each key at its own point: int32[len(keys), nlimbs]
-        shares on the device."""
+        """Evaluate each key at its own point (ints, or for a domain of at
+        most 2^64 a numpy uint64 array): shares on the device, a value of
+        batch shape [len(keys)] (int32[n, nlimbs], or a tuple of them for
+        a `TupleType`)."""
         if keys is None and staged is None:
             raise ValueError("either keys or staged must be provided")
         if keys is not None and len(keys) != len(evaluation_points):
             raise ValueError("keys and evaluation_points must have the same size")
-        lds = self.log_domain_size
-        for x in evaluation_points:
-            if not (0 <= x < (1 << lds)):
-                raise ValueError(f"evaluation point {x} out of range")
+        xs = points_array(evaluation_points, self.log_domain_size,
+                          lambda x: f"evaluation point {x} out of range")
         if staged is None:
             staged = self.stage_keys(keys)
-        # Level hl adds its value where bit (lds - 1 - hl) of x is 0.
-        xs = np.array(evaluation_points, dtype=np.uint64 if lds <= 64 else object)
-        bit_pos = np.arange(lds - 1, -1, -1, dtype=xs.dtype)
-        masks = ((xs[None, :] >> bit_pos[:, None]) & 1) == 0
+        # Level hl adds its value where bit (lds - 1 - hl) of x is 0, read
+        # on the device.
+        points = to_tensor(points_to_limbs(xs, len(xs)), staged.parties.device)
+        masks = point_bits(points, range(self.log_domain_size - 1, -1, -1)) == 0
         return self.dpf.evaluate_and_accumulate(
-            staged, list(evaluation_points), masks, evaluation_points_rightshift=1)
+            staged, xs, masks, evaluation_points_rightshift=1)

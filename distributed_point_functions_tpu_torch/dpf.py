@@ -20,7 +20,14 @@ The port of the JAX package's `dpf.py`:
     multi-key engine behind the DCF) run every tree level of a walk in one
     K8 `path_walk` launch, with shared or per-seed corrections;
   - leaf values come from K3 `value_hash`, then limb arithmetic on the
-    value types (`value_types.py`).
+    value types (`value_types.py`). A leaf of one 128-bit block is hashed
+    at the expansion's exit (K4's or K5's fused hash, or K3 in level
+    mode); a leaf of B > 1 blocks (the sampled `IntModNType` and
+    `TupleType` values, or a tuple wider than 128 bits) leaves the
+    expansion as a seed, and one K3 launch hashes seed + j for j < B, as
+    the JAX package does with `fuse = blocks_needed == 1`. Tail mode's K5
+    always hashes, so such a level runs tail mode without its tail: K6
+    and K2, then K3.
 * **EvaluationContext** is the checkpoint of a partially evaluated DPF
   (prefix -> seed, control bit, kept on the device); hierarchical
   evaluation resumes from it. A call copies what it needs to the device
@@ -60,8 +67,8 @@ from .ops.aes_bitslice import (
     unpack_select_bits,
 )
 from .ops.expand_planes import path_walk, value_hash
-from .ops.words import to_tensor, to_tensors
-from .value_types import IntType, ValueType, XorType
+from .ops.words import to_tensors
+from .value_types import ValueType, XorType, tree_leaves, tree_map, tree_unflatten
 
 _U128_MASK = (1 << 128) - 1
 
@@ -166,7 +173,56 @@ class StagedKeyBatch:
     cw_planes: torch.Tensor  # int32[L, 16, 8, G], L = tree levels - 1
     cw_left: torch.Tensor  # int32[L, G] packed
     cw_right: torch.Tensor  # int32[L, G] packed
-    value_corrections: list  # per hierarchy level: int32[32G, epb, nlimbs]
+    value_corrections: list  # per hierarchy level: values [32G, epb]
+
+    @classmethod
+    def from_lanes(cls, n: int, rows: torch.Tensor, parties, seeds, cw_seeds,
+                   cw_left, cw_right, value_corrections) -> "StagedKeyBatch":
+        """The batch whose lane i holds key row `rows[i]` (int64[32G]; the
+        padding lanes past `n` must pick an all-zero row) of lane-major
+        tensors on one device: parties int32[u], seeds int32[u, 4],
+        cw_seeds int32[L, u, 4], cw_left / cw_right int32[L, u] (0/1), and
+        per hierarchy level a value of batch shape [u, epb]. The gather and
+        the packing into plane layout run on that device."""
+        levels, g = cw_seeds.shape[0], rows.shape[0] // 32
+        parties = parties[rows]
+        cw_planes = limbs_to_planes(cw_seeds[:, rows].reshape(-1, 4).contiguous())
+
+        def words(w):
+            return pack_select_bits(w[:, rows].reshape(-1)).reshape(levels, g)
+
+        return cls(n, parties, limbs_to_planes(seeds[rows].contiguous()),
+                   pack_select_bits(parties),
+                   cw_planes.reshape(16, 8, levels, g).permute(2, 0, 1, 3).contiguous(),
+                   words(cw_left), words(cw_right),
+                   [tree_map(lambda v: v[rows], vc) for vc in value_corrections])
+
+    def repeat(self, times: int) -> "StagedKeyBatch":
+        """Each key `times` times in a row (key k in lanes k * times to
+        (k + 1) * times - 1), on the device: the packed planes and words
+        are unpacked to lanes and packed again by `from_lanes` (32 keys
+        share a packed word, so repeating the words would not repeat
+        keys)."""
+        if times < 1:
+            raise ValueError("times must be at least 1")
+        n = self.n * times
+        width = self.parties.shape[0]  # its lanes; one zero row after them
+        rows = torch.full((_pad32(n),), width, dtype=torch.int64, device=self.parties.device)
+        rows[:n] = torch.arange(self.n, device=rows.device).repeat_interleave(times)
+        levels, g = self.cw_left.shape
+
+        def zero_row(x):
+            return F.pad(x, (0, 0) * (x.ndim - 1) + (0, 1))
+
+        def lanes(w):  # packed words [L, G] -> lanes [L, 32G + 1]
+            return F.pad(unpack_select_bits(w.reshape(-1)).reshape(levels, 32 * g), (0, 1))
+
+        cw_limbs = planes_to_limbs(self.cw_planes.permute(1, 2, 0, 3).reshape(16, 8, levels * g))
+        return StagedKeyBatch.from_lanes(
+            n, rows, zero_row(self.parties), zero_row(planes_to_limbs(self.state)),
+            F.pad(cw_limbs.reshape(levels, 32 * g, 4), (0, 0, 0, 1)),
+            lanes(self.cw_left), lanes(self.cw_right),
+            [tree_map(zero_row, vc) for vc in self.value_corrections])
 
 
 # ---------------------------------------------------------------------------
@@ -216,12 +272,45 @@ def _path_bits(paths: np.ndarray, bit_indices: Sequence[int]) -> np.ndarray:
     return out
 
 
-def _points_to_limbs(points: Sequence[int], rows: int) -> np.ndarray:
-    """uint32[rows, 4] limbs of the 128-bit `points`, zero rows after them."""
-    data = b"".join(int(p).to_bytes(16, "little") for p in points)
+def point_bits(points: torch.Tensor, bit_indices: Sequence[int]) -> torch.Tensor:
+    """`_path_bits` on the device: int32[L, n] 0/1, bit `bit_indices[j]` of
+    each int32[n, 4] point (0 past bit 127). One gather for all levels, so
+    a batch's path bits cost the host nothing per point."""
+    idx = np.asarray(bit_indices, dtype=np.int64).reshape(-1)
+    inside = idx < 128
+    cols = torch.from_numpy(np.where(inside, idx >> 5, 0)).to(points.device)
+    shifts = torch.from_numpy(np.where(inside, idx & 31, 0).astype(np.int32)).to(points.device)
+    keep = torch.from_numpy(inside.astype(np.int32)).to(points.device)
+    return ((points[:, cols] >> shifts) & keep).T.contiguous()
+
+
+def points_to_limbs(points: Sequence[int], rows: int) -> np.ndarray:
+    """uint32[rows, 4] limbs of the 128-bit `points` (ints, or a numpy
+    uint64 array), zero rows after them."""
     out = np.zeros((rows, 4), dtype=np.uint32)
+    if isinstance(points, np.ndarray) and points.dtype == np.uint64:
+        out[:len(points), 0] = points & np.uint64(0xFFFFFFFF)
+        out[:len(points), 1] = points >> np.uint64(32)
+        return out
+    data = b"".join(int(p).to_bytes(16, "little") for p in points)
     out[:len(points)] = np.frombuffer(data, dtype="<u4").reshape(-1, 4)
     return out
+
+
+def distinct_rows(items) -> Tuple[list, np.ndarray]:
+    """(the distinct objects of `items` by identity, in first-seen order;
+    int64[len(items)] the row of each item among them): a batch that
+    repeats a key reads it once."""
+    rows: Dict[int, int] = {}
+    uniq = []
+    index = np.empty(len(items), dtype=np.int64)
+    for i, item in enumerate(items):
+        row = rows.get(id(item))
+        if row is None:
+            row = rows[id(item)] = len(uniq)
+            uniq.append(item)
+        index[i] = row
+    return uniq, index
 
 
 def _pad32(n: int) -> int:
@@ -229,12 +318,14 @@ def _pad32(n: int) -> int:
 
 
 def _to_device(dev, *groups: dict) -> List[dict]:
-    """Groups of named numpy arrays -> the same names as int32 tensors on
-    `dev`, moved in ONE host-to-device copy. Every evaluation stages all
-    it needs before its first launch: a blocking copy queued behind
-    launches would wait for them."""
-    tensors = iter(to_tensors([a for g in groups for a in g.values()], dev))
-    return [{name: next(tensors) for name in g} for g in groups]
+    """Groups of named numpy arrays (or tuples of them, a tuple type's
+    values) -> the same names as int32 tensors on `dev`, moved in ONE
+    host-to-device copy. Every evaluation stages all it needs before its
+    first launch: a blocking copy queued behind launches would wait for
+    them."""
+    tensors = iter(to_tensors(
+        [leaf for g in groups for a in g.values() for leaf in tree_leaves(a)], dev))
+    return [{name: tree_unflatten(a, tensors) for name, a in g.items()} for g in groups]
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +380,13 @@ def _leaf_stage_at(blocks, control, vc, block_indices, vtype, party):
     """Leaf values at given block indices (point evaluation).
 
     blocks int32[..., B, 4] value-hashed leaf blocks (`_value_hash`);
-    control int32[...]; vc int32[..., epb, nlimbs] (or [epb, nlimbs],
-    shared); block_indices int64[...]. Returns int32[..., nlimbs]; `party`
-    1 negates, -1 leaves negation to the caller (per key)."""
+    control int32[...]; vc a value of batch shape [..., epb] (or [epb],
+    shared); block_indices int64[...]. Returns a value of batch shape
+    [...]; `party` 1 negates, -1 leaves negation to the caller (per key)."""
     values = vtype.dev_from_value_blocks(blocks)
     picked = vtype.dev_take_element(values, block_indices)
-    vc_picked = vtype.dev_take_element(vc.expand(values.shape), block_indices)
+    vc_picked = vtype.dev_take_element(
+        tree_map(lambda c, v: c.expand(v.shape), vc, values), block_indices)
     corrected = vtype.dev_where(control != 0, vtype.dev_add(picked, vc_picked), picked)
     if party == 1:
         corrected = vtype.dev_neg(corrected)
@@ -302,17 +394,17 @@ def _leaf_stage_at(blocks, control, vc, block_indices, vtype, party):
 
 
 def _leaf_stage(blocks, control, vc, vtype, cepb, party):
-    """Value-hashed leaf blocks int32[n, 4] -> corrected values
-    int32[n * cepb, nlimbs] in domain order: the first `cepb` elements of
-    each block, the value correction where the control bit is set, and
-    party 1's negation."""
-    values = vtype.dev_from_value_blocks(blocks[:, None, :])[:, :cepb]
-    vc = vc[:cepb].expand(values.shape)
-    mask = (control != 0)[:, None].expand(values.shape[:2])
+    """Value-hashed leaf blocks int32[n, B, 4] -> corrected values of batch
+    shape [n * cepb] in domain order: the first `cepb` elements of each
+    leaf, the value correction (a value of batch shape [epb]) where the
+    control bit is set, and party 1's negation."""
+    values = tree_map(lambda x: x[:, :cepb], vtype.dev_from_value_blocks(blocks))
+    vc = tree_map(lambda c, v: c[:cepb].expand(v.shape), vc, values)
+    mask = (control != 0)[:, None].expand(blocks.shape[0], cepb)
     corrected = vtype.dev_where(mask, vtype.dev_add(values, vc), values)
     if party == 1:
         corrected = vtype.dev_neg(corrected)
-    return corrected.reshape(-1, values.shape[-1])
+    return tree_map(lambda x: x.reshape(-1, x.shape[-1]), corrected)
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +417,8 @@ class DistributedPointFunction:
 
     Create with `create` (single hierarchy level) or `create_incremental`.
     `device` is where evaluation runs (None: the CUDA card). Value types:
-    `IntType` and `XorType`.
+    any of `value_types.py`; a `TupleType` level's values are tuples of
+    limb tensors.
     """
 
     # The kernels of subtree expansion: None is the dense-PIR default
@@ -342,9 +435,8 @@ class DistributedPointFunction:
         resolved = []
         prev_lds = 0
         for i, p in enumerate(parameters):
-            if not isinstance(p.value_type, (IntType, XorType)):
-                raise NotImplementedError(
-                    f"value type {p.value_type!r} is not ported; use IntType or XorType")
+            if not isinstance(p.value_type, ValueType):
+                raise TypeError(f"value_type must be a ValueType, got {p.value_type!r}")
             if p.log_domain_size < 0 or p.log_domain_size > 128:
                 raise ValueError("log_domain_size must be in [0, 128]")
             if i > 0 and p.log_domain_size <= prev_lds:
@@ -646,11 +738,14 @@ class DistributedPointFunction:
         alpha_prefix = alpha >> shift if shift < 128 else 0
         index_in_block = self._domain_to_block_index(alpha_prefix, hierarchy_level)
         vt = p.value_type
-        ebytes = (vt.total_bit_size() + 7) // 8
-        ints_a = [vt.parse_direct(bytes_a, i * ebytes)
-                  for i in range(vt.elements_per_block())]
-        ints_b = [vt.parse_direct(bytes_b, i * ebytes)
-                  for i in range(vt.elements_per_block())]
+        if vt.can_convert_directly():
+            ebytes = (vt.total_bit_size() + 7) // 8
+            ints_a = [vt.parse_direct(bytes_a, i * ebytes)
+                      for i in range(vt.elements_per_block())]
+            ints_b = [vt.parse_direct(bytes_b, i * ebytes)
+                      for i in range(vt.elements_per_block())]
+        else:  # sampled: one element from the B blocks
+            ints_a, ints_b = [vt.from_bytes(bytes_a)], [vt.from_bytes(bytes_b)]
         ints_b[index_in_block] = vt.add(ints_b[index_in_block], beta)
         out = []
         for a, b in zip(ints_a, ints_b):
@@ -692,48 +787,53 @@ class DistributedPointFunction:
                 self._hierarchy_to_tree[hierarchy_level]].value_correction
         return key.last_level_value_correction
 
-    def _value_correction_np(self, key: DpfKey, hierarchy_level: int) -> np.ndarray:
-        """uint32[epb, nlimbs]: the level's value correction as limbs."""
+    def _value_correction_np(self, key: DpfKey, hierarchy_level: int):
+        """The level's value correction as limbs uint32[epb, nlimbs] (a
+        tuple of them for a tuple type)."""
         vt = self.parameters[hierarchy_level].value_type
         vc = self._value_correction_host(key, hierarchy_level)
-        return np.stack([vt.host_const(v) for v in vc])
+        return tree_map(lambda *xs: np.stack(xs), *[vt.host_const(v) for v in vc])
 
     def stage_key_batch(self, keys: Sequence[DpfKey]) -> StagedKeyBatch:
         """Stage a batch of keys on the device in ONE host-to-device copy:
-        one pass over the keys assembles numpy arrays, which are packed
-        into plane layout on the host (`limbs_to_planes_np`). Reusable by
-        any number of `evaluate_and_apply` / `evaluate_and_accumulate`
-        calls."""
+        one pass over the distinct key objects (a key repeated in the batch
+        is read once) assembles numpy arrays, which move with each lane's
+        row; the gather into lanes and the packing into plane layout run
+        on the device (`StagedKeyBatch.from_lanes`). Reusable by any number
+        of `evaluate_and_apply` / `evaluate_and_accumulate` calls."""
         dev = self._dev()
         n = len(keys)
         if n == 0:
             raise ValueError("keys must not be empty")
         lanes = _pad32(n)
-        num_cw = self._tree_levels_needed - 1
-        seeds = np.zeros((lanes, 4), dtype=np.uint32)
-        parties = np.zeros((lanes,), dtype=np.uint32)
-        cw_seeds = np.zeros((num_cw, lanes, 4), dtype=np.uint32)
-        cw_left = np.zeros((num_cw, lanes), dtype=np.uint32)
-        cw_right = np.zeros((num_cw, lanes), dtype=np.uint32)
-        vcs = [np.zeros((lanes, p.value_type.elements_per_block(), p.value_type.nlimbs),
-                        dtype=np.uint32) for p in self.parameters]
-        for j, key in enumerate(keys):
+        uniq, rows = distinct_rows(keys)
+        u, num_cw = len(uniq), self._tree_levels_needed - 1
+        seeds = np.zeros((u + 1, 4), dtype=np.uint32)  # row u: the padding lanes
+        parties = np.zeros((u + 1,), dtype=np.uint32)
+        cw_seeds = np.zeros((num_cw, u + 1, 4), dtype=np.uint32)
+        cw_left = np.zeros((num_cw, u + 1), dtype=np.uint32)
+        cw_right = np.zeros((num_cw, u + 1), dtype=np.uint32)
+        vcs = [tree_map(lambda c, p=p: np.zeros(
+            (u + 1, p.value_type.elements_per_block()) + c.shape, dtype=np.uint32),
+            p.value_type.host_const(p.value_type.zero())) for p in self.parameters]
+        for j, key in enumerate(uniq):
             self._validate_key(key)
             seeds[j] = aes.u128_to_limbs(key.seed)
             parties[j] = key.party
-            for i, cw in enumerate(key.correction_words):
-                cw_seeds[i, j] = aes.u128_to_limbs(cw.seed)
-                cw_left[i, j] = cw.control_left
-                cw_right[i, j] = cw.control_right
-            for hl, p in enumerate(self.parameters):
-                for e, v in enumerate(self._value_correction_host(key, hl)):
-                    vcs[hl][j, e] = p.value_type.host_const(v)
-        staged = to_tensors([
-            parties, limbs_to_planes_np(seeds), pack_select_bits_np(parties),
-            limbs_to_planes_np(cw_seeds), pack_select_bits_np(cw_left),
-            pack_select_bits_np(cw_right), *vcs,
-        ], dev)
-        return StagedKeyBatch(n, *staged[:6], value_corrections=staged[6:])
+            if num_cw:
+                cw_seeds[:, j] = aes.u128s_to_limbs([cw.seed for cw in key.correction_words])
+                cw_left[:, j] = [cw.control_left for cw in key.correction_words]
+                cw_right[:, j] = [cw.control_right for cw in key.correction_words]
+            for hl in range(len(self.parameters)):
+                vc = self._value_correction_np(key, hl)
+                tree_map(lambda dst, src, j=j: dst.__setitem__(j, src), vcs[hl], vc)
+        rows = np.concatenate([rows, np.full(lanes - n, u)])
+        staged = to_tensors([rows, parties, seeds, cw_seeds, cw_left, cw_right,
+                             *[leaf for vc in vcs for leaf in tree_leaves(vc)]], dev)
+        leaves = iter(staged[6:])
+        return StagedKeyBatch.from_lanes(
+            n, staged[0].long(), *staged[1:6],
+            [tree_unflatten(vc, leaves) for vc in vcs])
 
     # -- evaluation (device) --------------------------------------------------
 
@@ -772,7 +872,7 @@ class DistributedPointFunction:
             arrays = {"state": limbs_to_planes_np(seeds),
                       "ctrl": pack_select_bits_np(control)}
         arrays.update(self._walk_arrays(
-            ctx.key, _points_to_limbs(tree_indices, lanes), start, stop))
+            ctx.key, points_to_limbs(tree_indices, lanes), start, stop))
         return arrays
 
     def _resume(self, ctx: EvaluationContext, t: dict, tree_indices: Sequence[int],
@@ -799,9 +899,10 @@ class DistributedPointFunction:
         return seeds, control
 
     def _expansion_arrays(self, key: DpfKey, start: int, stop: int, n: int,
-                          root=None):
+                          hashed: bool, root=None):
         """Host half of `_expand` for n seeds from tree level `start` to
-        `stop`: returns (meta, arrays).
+        `stop`, the leaves value-hashed at the exit if `hashed`: returns
+        (meta, arrays).
 
         While the width does not fill whole 32-lane words (n << h not a
         multiple of 32 and below 256 lanes) the first h levels run narrow,
@@ -839,21 +940,24 @@ class DistributedPointFunction:
                       "cw": cw[:h], "cwl": cwl[:h], "cwr": cwr[:h]}
         mode = self._expansion or dep.DEFAULT_EXPANSION
         plane_levels = levels - h
-        plan = dep.expansion_plan(mode, (n0 + pad) // 32, plane_levels)
+        # K5 always hashes: unhashed leaves run tail mode without its tail.
+        tail = {"tail_levels": 0} if mode == "tail" and not hashed else {}
+        plan = dep.expansion_plan(mode, (n0 + pad) // 32, plane_levels, **tail)
         arrays.update(
             plane_cw=cw[h:], plane_cwl=cwl[h:], plane_cwr=cwr[h:],
             perm=dep.exit_permutation(plane_levels, *plan, mode == "walk",
                                       1 << plane_levels))
-        return (n0, mode, plan), arrays
+        return (n0, mode, plan, hashed), arrays
 
     def _expand(self, meta, t: dict, seeds=None, control=None):
         """Device half of the expansion staged by `_expansion_arrays` (for
         device seeds int32[n, 4] / int32[n], or from the staged root):
-        returns (value blocks int32[n * 2^L, 4], control int32[n * 2^L]) in
-        natural order (leaf i * 2^L + path), L = stop - start."""
+        returns (value blocks, or the leaf seeds where the plan does not
+        hash, int32[n * 2^L, 4]; control int32[n * 2^L]) in natural order
+        (leaf i * 2^L + path), L = stop - start."""
         from .pir import dense_eval_planes as dep  # pir imports this module
 
-        n0, mode, plan = meta
+        n0, mode, plan, hashed = meta
         if seeds is None:
             state, ctrl = t["state"], t["ctrl"]
         else:
@@ -867,7 +971,7 @@ class DistributedPointFunction:
             state, ctrl, broadcast_cw_planes(t["plane_cw"]),
             -t["plane_cwl"][:, None], -t["plane_cwr"][:, None],
             torch.zeros((16, 8, 1), dtype=torch.int32, device=state.device),
-            mode=mode, plan=plan, node_lanes=g0)
+            mode=mode, plan=plan, node_lanes=g0, value_hash=hashed)
         perm = t["perm"].long()
         w = perm.shape[0]
         blocks = planes_to_limbs(values).reshape(w, 32 * g0, 4)[perm]
@@ -876,11 +980,15 @@ class DistributedPointFunction:
                 bits.transpose(0, 1)[:n0].reshape(-1))
 
     def _leaf_values(self, blocks, control, vc, key: DpfKey, hierarchy_level: int):
-        """Full-expansion leaf values int32[n * cepb, nlimbs], domain order
-        (vc: the level's value correction, int32[epb, nlimbs])."""
+        """Full-expansion leaf values of batch shape [n * cepb], domain
+        order, from `_expand`'s value blocks or, for a level of B > 1
+        blocks, its leaf seeds, hashed here in one K3 launch (vc: the
+        level's value correction, of batch shape [epb])."""
         vt = self.parameters[hierarchy_level].value_type
         cepb = 1 << (self.parameters[hierarchy_level].log_domain_size
                      - self._hierarchy_to_tree[hierarchy_level])
+        num_blocks = self._blocks_needed[hierarchy_level]
+        blocks = blocks[:, None, :] if num_blocks == 1 else _value_hash(blocks, num_blocks)
         return _leaf_stage(blocks, control, vc, vt, cepb, key.party)
 
     def evaluate_next(self, prefixes: Sequence[int], ctx: EvaluationContext):
@@ -894,8 +1002,9 @@ class DistributedPointFunction:
                        ctx: EvaluationContext):
         """Hierarchical evaluation up to `hierarchy_level`.
 
-        Returns int32[len(prefixes) * 2^(lds_level - lds_prev), nlimbs] (or
-        the full domain on the first call), in domain order grouped by
+        Returns a value of batch shape [len(prefixes) * 2^(lds_level -
+        lds_prev)] (int32[..., nlimbs], or a tuple of them for a tuple
+        type; the full domain on the first call), in domain order grouped by
         prefix. Everything a call copies to the device moves in one copy
         before its first launch, and nothing comes back to the host."""
         key = ctx.key
@@ -923,7 +1032,8 @@ class DistributedPointFunction:
         if not prefixes:
             root = (aes.u128_to_limbs(key.seed)[None, :],
                     np.array([key.party], dtype=np.uint32))
-            meta, arrays = self._expansion_arrays(key, 0, stop_level, 1, root)
+            meta, arrays = self._expansion_arrays(
+                key, 0, stop_level, 1, self._blocks_needed[hierarchy_level] == 1, root)
             (t,) = _to_device(dev, {"vc": vc, **arrays})
             blocks, control = self._expand(meta, t)
             out = self._leaf_values(blocks, control, t["vc"], key, hierarchy_level)
@@ -953,7 +1063,8 @@ class DistributedPointFunction:
         for i, (tp, bi) in enumerate(prefix_map):
             idx[i] = tp * span + bi * outputs_per_prefix + base
         meta, arrays = self._expansion_arrays(key, start_level, stop_level,
-                                              len(tree_indices))
+                                              len(tree_indices),
+                                              self._blocks_needed[hierarchy_level] == 1)
         walk, t = _to_device(dev, self._resume_arrays(ctx, tree_indices, prev_hl),
                              {"vc": vc, "idx": idx.reshape(-1), **arrays})
         seeds, control = self._resume(ctx, walk, tree_indices, prev_hl,
@@ -961,13 +1072,14 @@ class DistributedPointFunction:
         blocks, control = self._expand(meta, t, seeds, control)
         values = self._leaf_values(blocks, control, t["vc"], key, hierarchy_level)
         ctx.previous_hierarchy_level = hierarchy_level
-        return values[t["idx"].long()]
+        idx = t["idx"].long()
+        return tree_map(lambda x: x[idx], values)
 
     def evaluate_at(self, key: DpfKey, hierarchy_level: int,
                     evaluation_points: Sequence[int],
                     ctx: Optional[EvaluationContext] = None):
         """Evaluate `key` at points of the hierarchy level's domain: returns
-        int32[len(evaluation_points), nlimbs]. Without `ctx` every path
+        a value of batch shape [len(evaluation_points)]. Without `ctx` every path
         walks from the root with the key's shared corrections (one K8
         launch); with it the walk resumes from, and updates, the context."""
         if ctx is not None and ctx.key is not key:
@@ -1001,16 +1113,19 @@ class DistributedPointFunction:
         return _leaf_stage_at(blocks, control, t["vc"], t["block_indices"].long(),
                               vt, key.party)
 
-    def _multi_key_values(self, staged: StagedKeyBatch,
+    def _multi_key_groups(self, staged: StagedKeyBatch,
                           evaluation_points: Sequence[int],
-                          evaluation_points_rightshift: int) -> list:
+                          evaluation_points_rightshift: int,
+                          negate: bool = True) -> list:
         """The multi-key engine: key k of `staged` walks the path of point k
         through every tree level in one K8 launch in per-seed mode, which
         writes out the walk states at each hierarchy level's tree level; one
-        K3 launch hashes them all (every ported value type fits one
-        block), and one leaf stage per value type corrects them. Returns
-        per hierarchy level the keys' values int32[n, nlimbs], each party-1
-        key's negated."""
+        K3 launch hashes them all (B blocks each, seed + j for j < B, where
+        a level needs B > 1), and one leaf stage per value type corrects
+        them. Returns per value type (type, its hierarchy levels in order,
+        their values of batch shape [levels, n]), each party-1 key's negated
+        (unless `negate` is False: a caller that sums levels negates the sum
+        once)."""
         n = staged.n
         if n != len(evaluation_points):
             raise ValueError("keys and evaluation_points size mismatch")
@@ -1018,24 +1133,30 @@ class DistributedPointFunction:
         lanes = staged.parties.shape[0]
         rs = evaluation_points_rightshift
         last_lds = self.parameters[-1].log_domain_size
-        paths = _points_to_limbs(evaluation_points, lanes)
         # Tree level t reads path bit (last_lds - 1 - t + rightshift), in
         # every hierarchy level alike.
         levels = self._hierarchy_to_tree[-1]
         bits = [last_lds - 1 - t + rs for t in range(levels)]
-        block_indices = np.zeros((len(self.parameters), lanes), dtype=np.uint32)
-        for hl, p in enumerate(self.parameters):
-            drs = rs + last_lds - p.log_domain_size
-            if p.log_domain_size > self._hierarchy_to_tree[hl]:  # packed blocks
-                block_indices[hl, :n] = [
-                    self._domain_to_block_index(pt >> drs if drs < 128 else 0, hl)
-                    for pt in evaluation_points]
+        # Block indices only where a level packs several values a block;
+        # elsewhere they are 0, made on the device rather than copied.
+        packed = [hl for hl, p in enumerate(self.parameters)
+                  if p.log_domain_size > self._hierarchy_to_tree[hl]]
+        block_indices = np.zeros((len(packed), lanes), dtype=np.uint32)
+        for row, hl in enumerate(packed):
+            drs = rs + last_lds - self.parameters[hl].log_domain_size
+            block_indices[row, :n] = [
+                self._domain_to_block_index(pt >> drs if drs < 128 else 0, hl)
+                for pt in evaluation_points]
         groups: Dict[ValueType, List[int]] = {}
         for hl, p in enumerate(self.parameters):
             groups.setdefault(p.value_type, []).append(hl)
-        sel, block_indices, *group_idx = to_tensors(
-            [pack_select_bits_np(_path_bits(paths, bits)), block_indices,
+        paths, packed_indices, *group_idx = to_tensors(
+            [points_to_limbs(evaluation_points, lanes), block_indices,
              *groups.values()], dev)
+        block_indices = torch.zeros((len(self.parameters), lanes), dtype=torch.int32,
+                                    device=dev)
+        block_indices[packed] = packed_indices
+        sel = pack_select_bits(point_bits(paths, bits).reshape(-1)).reshape(levels, lanes // 32)
 
         # One walk through every tree level, stopping at each hierarchy
         # level's: the stops' states side by side, one K3 launch for all.
@@ -1044,21 +1165,39 @@ class DistributedPointFunction:
             staged.cw_left[:levels], staged.cw_right[:levels],
             stops=self._hierarchy_to_tree)
         num_hl = len(self.parameters)
-        hashed = _hash_planes(states)
-        blocks = planes_to_limbs(hashed).reshape(num_hl, lanes, 1, 4)
+        num_blocks = max(self._blocks_needed)
+        if num_blocks == 1:
+            blocks = planes_to_limbs(_hash_planes(states))
+        else:
+            blocks = _value_hash(planes_to_limbs(states), num_blocks)
+        blocks = blocks.reshape(num_hl, lanes, num_blocks, 4)
         control = unpack_select_bits(ctrls).reshape(num_hl, lanes)
 
-        out = [None] * num_hl
-        negate = staged.parties != 0
+        out = []
+        party_one = staged.parties != 0
         for (vt, hls), idx in zip(groups.items(), group_idx):
-            idx = idx.long()
+            # One type at every level (the DCF): all rows, no gather.
+            idx = slice(None) if len(groups) == 1 else idx.long()
             values = _leaf_stage_at(
-                blocks[idx], control[idx],
-                torch.stack([staged.value_corrections[hl] for hl in hls]),
+                blocks[idx, :, :self._blocks_needed[hls[0]]], control[idx],
+                tree_map(lambda *xs: torch.stack(xs),
+                         *[staged.value_corrections[hl] for hl in hls]),
                 block_indices[idx].long(), vt, -1)
-            values = vt.dev_where(negate, vt.dev_neg(values), values)
+            if negate:
+                values = vt.dev_where(party_one, vt.dev_neg(values), values)
+            out.append((vt, hls, tree_map(lambda x: x[:, :n], values)))
+        return out
+
+    def _multi_key_values(self, staged: StagedKeyBatch,
+                          evaluation_points: Sequence[int],
+                          evaluation_points_rightshift: int) -> list:
+        """`_multi_key_groups` per hierarchy level: the keys' values of
+        batch shape [n], each party-1 key's negated."""
+        out = [None] * len(self.parameters)
+        for _, hls, values in self._multi_key_groups(
+                staged, evaluation_points, evaluation_points_rightshift):
             for i, hl in enumerate(hls):
-                out[hl] = values[i, :n]
+                out[hl] = tree_map(lambda x, i=i: x[i], values)
         return out
 
     def evaluate_and_accumulate(self, staged: StagedKeyBatch,
@@ -1067,8 +1206,9 @@ class DistributedPointFunction:
                                 evaluation_points_rightshift: int = 0):
         """Multi-key evaluation with a masked sum over hierarchy levels:
         `out[k] = sum of value_hl[k] over the levels hl with
-        level_masks[hl, k]` (the DCF's accumulator). Every hierarchy level
-        must share one value type. Returns int32[n, nlimbs]."""
+        level_masks[hl, k]` (the DCF's accumulator; numpy booleans, or a
+        bool tensor on the batch's device). Every hierarchy level must
+        share one value type. Returns a value of batch shape [n]."""
         if staged.n != len(evaluation_points):
             raise ValueError("keys and evaluation_points size mismatch")
         vt = self.parameters[0].value_type
@@ -1077,19 +1217,26 @@ class DistributedPointFunction:
                 "evaluate_and_accumulate requires a single value type across "
                 "hierarchy levels")
         num_hl = len(self.parameters)
-        level_masks = np.asarray(level_masks, dtype=bool)
-        if level_masks.shape != (num_hl, staged.n):
+        if not isinstance(level_masks, torch.Tensor):
+            level_masks = torch.from_numpy(np.ascontiguousarray(level_masks, dtype=bool))
+        if tuple(level_masks.shape) != (num_hl, staged.n) or level_masks.dtype != torch.bool:
             raise ValueError(f"level_masks must be [{num_hl}, {staged.n}] booleans")
-        masks = to_tensor(level_masks, staged.parties.device) != 0  # before any launch
-        values = torch.stack(self._multi_key_values(
-            staged, evaluation_points, evaluation_points_rightshift))
-        values = vt.dev_where(masks, values, torch.zeros_like(values))
+        masks = level_masks.to(staged.parties.device)  # before any launch
+        # One value type: one group, every level in order.
+        ((_, _, values),) = self._multi_key_groups(
+            staged, evaluation_points, evaluation_points_rightshift, negate=False)
+        values = vt.dev_where(masks, values, tree_map(torch.zeros_like, values))
         # The levels' sum as a tree of pairwise group additions.
-        while values.shape[0] > 1:
-            if values.shape[0] % 2:
-                values = torch.cat([values, torch.zeros_like(values[:1])])
-            values = vt.dev_add(values[0::2], values[1::2])
-        return values[0]
+        while num_hl > 1:
+            if num_hl % 2:
+                values = tree_map(lambda x: torch.cat([x, torch.zeros_like(x[:1])]), values)
+                num_hl += 1
+            values = vt.dev_add(tree_map(lambda x: x[0::2], values),
+                                tree_map(lambda x: x[1::2], values))
+            num_hl //= 2
+        # Party 1's negation distributes over the sum: once, at the end.
+        total = tree_map(lambda x: x[0], values)
+        return vt.dev_where(staged.parties[:staged.n] != 0, vt.dev_neg(total), total)
 
     def evaluate_and_apply(self, keys: Sequence[DpfKey],
                            evaluation_points: Sequence[int], op,
@@ -1097,8 +1244,9 @@ class DistributedPointFunction:
                            staged: Optional[StagedKeyBatch] = None):
         """Evaluate many keys, each at its own point, at every hierarchy
         level, and call `op(values, hierarchy_level)` per level in order
-        (values int32[len(keys), nlimbs]); a False from `op` stops the
-        calls. The walk of all levels runs first, in one pass. Pass a
+        (values of batch shape [len(keys)]); a False from `op` stops the
+        calls. The walk of all levels
+        runs first, in one pass. Pass a
         `staged` batch from `stage_key_batch` to reuse its staging (then
         `keys` may be None)."""
         if staged is None:

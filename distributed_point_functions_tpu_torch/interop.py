@@ -3,8 +3,10 @@
 The port never touches a JAX object. A caller holding JAX-package keys
 hands over their plain fields (Python ints, bools, lists of ints, numpy
 arrays): staged dense-PIR key arrays (`keys_from_arrays`), or one DPF or
-DCF key field by field, value corrections of incremental keys included
-(`dpf_key_from_fields`, `dcf_key_from_fields`). Records are plain bytes.
+DCF key field by field, value corrections of incremental keys included,
+of any value type (`dpf_key_from_fields`, `dcf_key_from_fields`), or a
+MIC gate's key and public parameters (`mic_key_from_fields`,
+`mic_parameters_from_fields`). Records are plain bytes.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from .dcf import DcfKey
 from .dpf import CorrectionWord, DpfKey
+from .fss_gates import Interval, MicKey, MicParameters
 from .ops.aes import limbs_to_u128
 from .pir.database import DenseDpfPirDatabase
 
@@ -60,12 +63,19 @@ def keys_from_arrays(
     return keys
 
 
+def _host_value(v):
+    """A host value of any value type: an int, or a tuple of host values."""
+    return tuple(_host_value(x) for x in v) if isinstance(v, tuple) else int(v)
+
+
 def dpf_key_from_fields(seed, party, correction_words,
                         last_level_value_correction) -> DpfKey:
     """The port's `DpfKey` from a key's plain fields: `seed` and `party`
     ints; `correction_words` a sequence of (seed, control_left,
     control_right, value_correction) with value_correction None or a
-    sequence of ints; `last_level_value_correction` a sequence of ints."""
+    sequence of host values; `last_level_value_correction` a sequence of
+    host values. A host value is an int (`IntType`, `XorType`,
+    `IntModNType`) or a tuple of host values (`TupleType`)."""
     if party not in (0, 1):
         raise ValueError("party must be 0 or 1")
     cws = [
@@ -73,13 +83,13 @@ def dpf_key_from_fields(seed, party, correction_words,
             seed=int(cw_seed),
             control_left=bool(left),
             control_right=bool(right),
-            value_correction=None if vc is None else [int(v) for v in vc],
+            value_correction=None if vc is None else [_host_value(v) for v in vc],
         )
         for cw_seed, left, right, vc in correction_words
     ]
     return DpfKey(
         seed=int(seed), party=int(party), correction_words=cws,
-        last_level_value_correction=[int(v) for v in last_level_value_correction],
+        last_level_value_correction=[_host_value(v) for v in last_level_value_correction],
     )
 
 
@@ -89,6 +99,24 @@ def dcf_key_from_fields(seed, party, correction_words,
     `dpf_key_from_fields`)."""
     return DcfKey(dpf_key_from_fields(seed, party, correction_words,
                                       last_level_value_correction))
+
+
+def mic_key_from_fields(seed, party, correction_words, last_level_value_correction,
+                        output_mask_share) -> MicKey:
+    """The port's `MicKey` from a gate key's plain fields: its DCF key's
+    DPF key fields (as `dpf_key_from_fields`) and the output mask shares,
+    a sequence of ints."""
+    return MicKey(
+        dcf_key=dcf_key_from_fields(seed, party, correction_words,
+                                    last_level_value_correction),
+        output_mask_share=[int(v) for v in output_mask_share])
+
+
+def mic_parameters_from_fields(log_group_size, intervals) -> MicParameters:
+    """The port's `MicParameters` from the public parameters' plain fields:
+    `log_group_size` and a sequence of (lower_bound, upper_bound) ints."""
+    return MicParameters(int(log_group_size),
+                         [Interval(int(lo), int(hi)) for lo, hi in intervals])
 
 
 def database_from_records(

@@ -55,7 +55,7 @@ from ..ops.expand_planes import (
     expand_tail,
     leaf_blocks,
     tail_node_permutation,
-    value_hash,
+    value_hash as hash_values,
     walk_descend,
     walk_leaf_order,
 )
@@ -284,7 +284,7 @@ def evaluate_planned(seeds0, control0, cw_seeds, cw_left, cw_right, last_vc,
 
 
 def expand_planned(state, ctrl, cwp, cwl, cwr, vc, *, mode: str, plan: tuple,
-                   node_lanes: int):
+                   node_lanes: int, value_hash: bool = True):
     """The phases of one planned expansion in plane layout: the head (K4
     or K6), K2 per middle level, then the tail (K4 or K5) or K3, ending in
     the leaf value hash. state int32[16, 8, G0]; ctrl int32[G0]; cwp
@@ -292,10 +292,14 @@ def expand_planned(state, ctrl, cwp, cwl, cwr, vc, *, mode: str, plan: tuple,
     divides `node_lanes`, the word columns of one tree node); `plan` from
     `expansion_plan(mode, node_lanes, L)`. Returns (values int32[16, 8, G0
     << L], leaf ctrl int32[G0 << L]) in the plan's leaf order
-    (`exit_permutation`)."""
+    (`exit_permutation`). Without `value_hash` the leaf seeds come out
+    instead of their values: K4's tail without its hash, no K3, and in
+    tail mode a plan without a tail (K5 always hashes)."""
     levels = cwp.shape[0]
     head, tail, tile_nodes = plan
     walk = mode == "walk"
+    if tail and not walk and not value_hash:
+        raise ValueError("K5 always hashes: plan tail mode without a tail for seeds")
     if head and walk:
         state, ctrl = walk_descend(state, ctrl, cwp[:head], cwl[:head], cwr[:head],
                                    node_lanes=node_lanes)
@@ -306,8 +310,10 @@ def expand_planned(state, ctrl, cwp, cwl, cwr, vc, *, mode: str, plan: tuple,
     a = levels - tail
     if tail and walk:
         return walk_descend(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
-                            value_hash=True, node_lanes=node_lanes)
+                            value_hash=value_hash, node_lanes=node_lanes)
     if tail:
         return expand_tail(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
                            tile_nodes * node_lanes)
-    return value_hash(state, ctrl, vc), ctrl
+    if not value_hash:
+        return state, ctrl
+    return hash_values(state, ctrl, vc), ctrl

@@ -4,9 +4,11 @@ The port of the JAX package's `serialization.py` for the messages dense
 PIR puts on the wire, written as a small proto3 encoder and decoder over
 the reference's schemas (`protos/distributed_point_function.proto`,
 `protos/private_information_retrieval.proto`): `Block`, `Value` and
-`ValueType` of `IntType` and `XorType`, `DpfParameters`, `DpfKey` with its
-`CorrectionWord`s, the four `DpfPirRequest` messages, `PirRequest` and
-`PirResponse`. Each `serialize_*` gives the bytes the JAX package's
+`ValueType` of every value type (`IntType`, `XorType`, `IntModNType` with
+its modulus as a `Value.Integer`, and `TupleType`, nested ones included),
+`DpfParameters`, `DpfKey` with its `CorrectionWord`s, the
+`EvaluationContext` with its partial evaluations, the four
+`DpfPirRequest` messages, `PirRequest` and `PirResponse`. Each `serialize_*` gives the bytes the JAX package's
 `*_to_proto(...).SerializeToString()` gives for the same object, and each
 `parse_*` reads any proto3 encoding of the message.
 
@@ -26,8 +28,8 @@ The decoder skips unknown fields of every wire type (groups included) and
 fields whose wire type does not match the schema, merges repeated
 occurrences of a singular submessage, takes the last occurrence of a
 scalar and the last member set of a oneof, and raises `ValueError` on
-truncated or malformed bytes. Not covered here: the evaluation context,
-`IntModNType` and `TupleType` values, and the cuckoo public parameters.
+truncated or malformed bytes. Not covered here: the cuckoo public
+parameters.
 """
 
 from __future__ import annotations
@@ -35,9 +37,20 @@ from __future__ import annotations
 import struct
 from typing import Dict, List, Optional, Tuple
 
-from .dpf import CorrectionWord, DistributedPointFunction, DpfKey, DpfParameters
+import numpy as np
+
+from .dpf import (
+    CorrectionWord,
+    DistributedPointFunction,
+    DpfKey,
+    DpfParameters,
+    EvaluationContext,
+    PartialEvaluations,
+)
+from .ops import aes
+from .ops.words import to_numpy, to_tensors
 from .pir import messages
-from .value_types import IntType, XorType
+from .value_types import IntModNType, IntType, TupleType, XorType
 
 _U64 = (1 << 64) - 1
 
@@ -109,18 +122,34 @@ def _integer(value: int, bits: int) -> bytes:
 
 
 def serialize_value_type(vt) -> bytes:
+    """`ValueType`: `integer` (1), `tuple` (2) of element types,
+    `int_mod_n` (3) with its base integer and modulus, `xor_wrapper` (4)."""
     if isinstance(vt, IntType):
         return _message(1, _int32(1, vt.bits))
     if isinstance(vt, XorType):
         return _message(4, _int32(1, vt.bits))
+    if isinstance(vt, IntModNType):
+        return _message(3, _message(1, _int32(1, vt.base_bits))
+                        + _message(2, _integer(vt.modulus, vt.base_bits)))
+    if isinstance(vt, TupleType):
+        return _message(2, b"".join(_message(1, serialize_value_type(e))
+                                    for e in vt.elements))
     raise ValueError(f"unsupported value type {vt!r}")
 
 
-def serialize_value(vt, value: int) -> bytes:
+def serialize_value(vt, value) -> bytes:
+    """`Value` of a host value: an integer in the member of its type
+    (`IntModNType` values by their base integer), a tuple element by
+    element."""
     if isinstance(vt, IntType):
         return _message(1, _integer(value, vt.bits))
     if isinstance(vt, XorType):
         return _message(4, _integer(value, vt.bits))
+    if isinstance(vt, IntModNType):
+        return _message(3, _integer(value, vt.base_bits))
+    if isinstance(vt, TupleType):
+        return _message(2, b"".join(_message(1, serialize_value(e, v))
+                                    for e, v in zip(vt.elements, value)))
     raise ValueError(f"unsupported value type {vt!r}")
 
 
@@ -154,6 +183,27 @@ def serialize_key(dpf: DistributedPointFunction, key: DpfKey) -> bytes:
     last_vt = dpf.parameters[-1].value_type
     parts += [_message(5, serialize_value(last_vt, v))
               for v in key.last_level_value_correction]
+    return b"".join(parts)
+
+
+def serialize_evaluation_context(dpf: DistributedPointFunction,
+                                 ctx: EvaluationContext) -> bytes:
+    """`EvaluationContext`: the DPF's parameters, the key, both levels and
+    the partial evaluations (prefix, seed, control bit) sorted by prefix;
+    the seeds are read back from the device."""
+    parts = [_message(1, serialize_parameters(p)) for p in dpf.parameters]
+    parts.append(_message(2, serialize_key(dpf, ctx.key)))
+    parts.append(_int32(3, ctx.previous_hierarchy_level))
+    pe = ctx.partial_evaluations
+    if pe is not None and len(pe.prefixes):
+        rows = pe.rows
+        seeds = aes.limbs_to_u128s(to_numpy(pe.seeds)[rows])
+        control = to_numpy(pe.control)[rows]
+        for prefix, seed, bit in zip(pe.prefixes, seeds, control):
+            parts.append(_message(4, _message(1, serialize_block(int(prefix)))
+                                  + _message(2, serialize_block(seed))
+                                  + (b"\x18\x01" if bit else b"")))
+    parts.append(_int32(5, ctx.partial_evaluations_level))
     return b"".join(parts)
 
 
@@ -363,24 +413,38 @@ def _parse_integer(data: bytes) -> int:
 _TYPE_MEMBERS = {1: _LEN, 2: _LEN, 3: _LEN, 4: _LEN}
 
 
+def _bitsize(data: Optional[bytes]) -> int:
+    """The `bitsize` of a `ValueType.Integer` (0 when absent)."""
+    return _as_int32(_fields(data or b"", {1: _VARINT}).get(1, [0])[-1])
+
+
 def parse_value_type(data: bytes):
     member, values = _oneof(data, _TYPE_MEMBERS)
+    body = b"".join(values)
     if member in (1, 4):
-        bits = _as_int32(_fields(b"".join(values), {1: _VARINT}).get(1, [0])[-1])
-        return IntType(bits) if member == 1 else XorType(bits)
-    if member is None:
-        raise ValueError("ValueType has no type set")
-    raise ValueError("IntModN and tuple value types are not ported")
+        return (IntType if member == 1 else XorType)(_bitsize(body))
+    if member == 3:
+        f = _fields(body, {1: _LEN, 2: _LEN})
+        return IntModNType(base_bits=_bitsize(_sub(f, 1)),
+                           modulus=_parse_integer(_sub(f, 2) or b""))
+    if member == 2:
+        return TupleType([parse_value_type(e)
+                          for e in _fields(body, {1: _LEN}).get(1, [])])
+    raise ValueError("ValueType proto has no type set")
 
 
-def parse_value(vt, data: bytes) -> int:
-    field = 1 if isinstance(vt, IntType) else 4 if isinstance(vt, XorType) else None
-    if field is None:
-        raise ValueError(f"unsupported value type {vt!r}")
+def parse_value(vt, data: bytes):
     member, values = _oneof(data, _TYPE_MEMBERS)
+    body = b"".join(values)
     # A value of another kind reads as the default of this one, as the
     # JAX package's accessor of the unset member does.
-    return _parse_integer(b"".join(values)) if member == field else 0
+    if isinstance(vt, TupleType):
+        elements = _fields(body, {1: _LEN}).get(1, []) if member == 2 else []
+        return tuple(parse_value(e, x) for e, x in zip(vt.elements, elements))
+    field = {IntType: 1, XorType: 4, IntModNType: 3}.get(type(vt))
+    if field is None:
+        raise ValueError(f"unsupported value type {vt!r}")
+    return _parse_integer(body) if member == field else 0
 
 
 def parse_parameters(data: bytes) -> DpfParameters:
@@ -423,6 +487,35 @@ def parse_key(dpf: DistributedPointFunction, data: bytes) -> DpfKey:
         correction_words=cws,
         last_level_value_correction=[parse_value(last_vt, v) for v in f.get(5, [])],
     )
+
+
+_CONTEXT = {1: _LEN, 2: _LEN, 3: _VARINT, 4: _LEN, 5: _VARINT}
+_PARTIAL = {1: _LEN, 2: _LEN, 3: _VARINT}
+
+
+def parse_evaluation_context(data: bytes, device=None):
+    """(DPF, context) from `EvaluationContext` bytes: the DPF is rebuilt
+    from the parameters on `device` (None: the CUDA card), and the partial
+    evaluations' seeds are staged there."""
+    f = _fields(data, _CONTEXT)
+    dpf = DistributedPointFunction.create_incremental(
+        [parse_parameters(p) for p in f.get(1, [])], device=device)
+    ctx = EvaluationContext(
+        key=parse_key(dpf, _sub(f, 2) or b""),
+        previous_hierarchy_level=_as_int32(f.get(3, [0])[-1]),
+        partial_evaluations_level=_as_int32(f.get(5, [0])[-1]))
+    partial = [_fields(pe, _PARTIAL) for pe in f.get(4, [])]
+    if partial:
+        # Repeated prefixes keep their last occurrence, as the JAX
+        # package's dict does.
+        table = {parse_block(_sub(p, 1) or b""): (parse_block(_sub(p, 2) or b""),
+                                                  int(bool(p.get(3, [0])[-1])))
+                 for p in partial}
+        seeds, control = to_tensors(
+            [aes.u128s_to_limbs([s for s, _ in table.values()]),
+             np.array([c for _, c in table.values()], dtype=np.uint32)], dpf._dev())
+        ctx.partial_evaluations = PartialEvaluations.build(list(table), seeds, control)
+    return dpf, ctx
 
 
 def _parse_plain_request(dpf, data: Optional[bytes]) -> "messages.PlainRequest":

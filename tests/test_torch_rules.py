@@ -53,7 +53,12 @@ def _port_modules():
 
 def test_import_loads_no_jax():
     assert {"distributed_point_functions_tpu_torch.dpf",
-            "distributed_point_functions_tpu_torch.dcf"} <= set(_port_modules())
+            "distributed_point_functions_tpu_torch.dcf",
+            "distributed_point_functions_tpu_torch.proto_validator",
+            "distributed_point_functions_tpu_torch.fss_gates",
+            "distributed_point_functions_tpu_torch.fss_gates.prng",
+            "distributed_point_functions_tpu_torch.fss_gates.multiple_interval_containment",
+            } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -211,7 +216,9 @@ def test_wrappers_raise_for_other_devices():
     ["ops/expand_planes.py", "ops/aes_bitslice.py", "ops/inner_product_kernels.py",
      "pir/dense_eval_planes.py", "pir/database.py", "pir/server.py", "dpf.py",
      "dcf.py", "value_types.py", "ops/limb.py", "pir/dense_eval.py",
-     "pir/client.py", "pir/messages.py", "prng.py", "serialization.py"],
+     "pir/client.py", "pir/messages.py", "prng.py", "serialization.py",
+     "proto_validator.py", "interop.py", "fss_gates/multiple_interval_containment.py",
+     "fss_gates/prng.py"],
 )
 def test_serving_path_has_no_try(module):
     tree = ast.parse((PORT_DIR / module).read_text())
