@@ -207,6 +207,34 @@ non-zero before printing a result. Phases, one JSON line each:
      tier once more in tail mode (`expansion="tail"`: K6, K2 for the
      middle levels, K5), its responses equal to the first run's, its
      launches from the plan, its peak under the same gate.
+   Then sparse PIR (its own generator), each run with every launch count
+   set to 0 just before it and checked just after:
+   - `sparse_small`: 3,000 keys (4,500 buckets, 36 selection blocks under
+     a covering tree of 64), 40 queries with 8 absent keys: in every
+     expansion mode and on every tier (forced with the tier floor), the
+     card's responses equal a `device="cpu"` server's, every present key
+     resolves to its value and every absent key to None;
+   - `sparse` x6: `BASELINE.json` configs[4] on one card, the JAX
+     package's `bench_sparse_big` shape: 2^24 keys `b"k%012d" % i` with
+     16-byte values from `default_rng(13)`, `generate_params(2**24,
+     seed=b"0123456789abcdef")` (25,165,824 buckets, 3 SHA256 hashes,
+     196,608 selection blocks: 18 expansion levels, no host walk), built
+     through the builder (`build_s`; the SHA256 hashing, the native build
+     of the slot array and the packing of the bucket rows timed again
+     alone, the staging), one dense staging of 32-byte bucket rows (key
+     words, then value words). Batches of 64 and 128 queries (8 absent
+     each) in walk mode on the planner's tier at the default budget, then
+     streaming and chunked under a 64 MiB budget with the tier floor: the
+     launches the plan gives, every present key resolved, every absent
+     key None, the tiers' bytes equal to the default tier's, the peak of
+     one party's batch within the model plus its staged keys, response
+     rows (at the bucket row's width), index vectors and 2 MiB of the
+     caching allocator's granularity; ms, q/s and the device's idle share;
+   - `sparse_two_party`: a Leader and a Helper over that database, the
+     client built from `get_public_params()` bytes, 128 queries through
+     the hybrid-encrypted Helper leg and the one-time pad: every value
+     resolves and every absent key is `KeyNotFound`; round-trip ms by
+     step and q/s.
 8. `{"kernels": [...]}`: every ported kernel with its launches on the
    main path (the run of the mode or path that launches it; K1 from the
    default mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of its
@@ -477,6 +505,17 @@ MIC_BENCH_KEYS = 16
 P32 = 4294967291
 INT_MOD_N_SAMPLES = 1 << 20
 INT_MOD_N_MODULUS = 1000003
+# Sparse PIR (BASELINE.json configs[4] on one card; the JAX package's
+# benchmarks/baseline_suite.py:156-212): 2^24 keys "k%012d", 16-byte values
+# from default_rng(13), the cuckoo seed below, batches of 64 and 128
+# queries with some absent keys; `sparse_small` at 3,000 keys.
+SPARSE_KEYS = 1 << 24
+SPARSE_SMALL_KEYS = 3000
+SPARSE_VALUE_BYTES = 16
+SPARSE_SEED = b"0123456789abcdef"
+SPARSE_QUERIES = (64, 128)
+SPARSE_ABSENT = 8  # absent keys in every batch
+SPARSE_REPS = 5
 
 
 def as_u64(shares):
@@ -1157,7 +1196,11 @@ def count_product_edges(dev) -> dict:
 
 def tier_launches(plan, mode: str, key_groups: int) -> dict:
     """Launches of one batch of both parties on `plan`
-    (`planner.ServingPlan`) in expansion `mode`."""
+    (`planner.ServingPlan`) in expansion `mode`. The chunked tier runs one
+    chunk a granule-padded span of blocks (the plan's num_chunks is its
+    lower bound: a ragged block count runs fewer)."""
+    from distributed_point_functions_tpu_torch.pir.planner import CHUNK_GRANULE_LEVELS
+
     per_party = {}
 
     def add(counts, times=1):
@@ -1172,10 +1215,12 @@ def tier_launches(plan, mode: str, key_groups: int) -> dict:
         add(expansion_launches(mode, plan.chunk_levels, key_groups), plan.num_chunks)
         add({"leaf_blocks": 1, "xor_inner_product": 1}, plan.num_chunks)
     else:
+        granule = 1 << min(plan.expand_levels, CHUNK_GRANULE_LEVELS)
+        chunks = (-(-plan.num_blocks // granule) * granule) >> plan.chunk_levels
         if plan.cut_levels:  # one K8 walk a chunk
-            add({"path_level": 1}, plan.num_chunks)
-        add(expansion_launches(mode, plan.chunk_levels, key_groups), plan.num_chunks)
-        add({"leaf_blocks": 1, "xor_inner_product": 1}, plan.num_chunks)
+            add({"path_level": 1}, chunks)
+        add(expansion_launches(mode, plan.chunk_levels, key_groups), chunks)
+        add({"leaf_blocks": 1, "xor_inner_product": 1}, chunks)
     return {name: 2 * n for name, n in per_party.items() if n}
 
 
@@ -1301,6 +1346,338 @@ def tiers_phase(rng, dev) -> dict:
               **device_busy(lambda: server.handle_plain_request(r0))})
     set_default_capacity_model(None)
     server_mod.clear_tier_floor()
+    return launches
+
+
+def sparse_keys(n: int) -> list:
+    return [b"k%012d" % i for i in range(n)]
+
+
+def sparse_queries(rng, num_keys: int, nq: int) -> list:
+    """nq queries: present keys (`sparse_keys`) drawn by `rng`, and
+    SPARSE_ABSENT absent ones spread among them."""
+    out = [b"k%012d" % i for i in rng.integers(0, num_keys, nq - SPARSE_ABSENT)]
+    for j in range(SPARSE_ABSENT):
+        out.insert(j * (nq // SPARSE_ABSENT), b"absent%06d" % j)
+    return out
+
+
+def check_sparse(client, shares, queries, value_of, value_size, what: str) -> int:
+    """Both parties' plain responses XORed and matched per query: every
+    present key's value (`value_of(key)`, zero-padded to the longest) and
+    None for every absent key (`value_of` gives None). Returns the number
+    of present keys found."""
+    raw = [bytes(a ^ b for a, b in zip(x, y)) for x, y in zip(*shares)]
+    found = 0
+    for q, v in zip(queries, client._match(raw, queries)):
+        want = value_of(q)
+        if want is None:
+            if v is not None:
+                raise AssertionError(f"{what}: absent key {q!r} resolved to a value")
+        elif v != want + bytes(value_size - len(want)):
+            raise AssertionError(f"{what}: key {q!r} does not resolve to its value")
+        else:
+            found += 1
+    return found
+
+
+def sparse_small_phase(rng, dev) -> dict:
+    """3,000 keys (4,500 buckets, 36 selection blocks under a covering tree
+    of 64): the card's responses must equal a `device="cpu"` server's on
+    the same database in every expansion mode and on every tier (each
+    forced with the tier floor), with the launches the plan gives; every
+    present key resolves to its value, every absent key to None."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.pir import (
+        CuckooHashedDpfPirDatabase,
+        CuckooHashingSparseDpfPirClient,
+        CuckooHashingSparseDpfPirServer,
+    )
+    from distributed_point_functions_tpu_torch.pir import server as server_mod
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import EXPANSION_MODES
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    keys = sparse_keys(SPARSE_SMALL_KEYS)
+    values = [rng.bytes(int(rng.integers(0, SPARSE_VALUE_BYTES + 1))) for _ in keys]
+    records = dict(zip(keys, values))
+    params = CuckooHashingSparseDpfPirServer.generate_params(len(keys), seed=SPARSE_SEED)
+    builder = CuckooHashedDpfPirDatabase.Builder().set_params(params)
+    for kv in records.items():
+        builder.insert(kv)
+    gpu_db, cpu_db = builder.build(), builder.build(device="cpu")
+    queries = sparse_queries(rng, len(keys), 40)
+    launches = {}
+    for mode in EXPANSION_MODES:
+        gpu = CuckooHashingSparseDpfPirServer.create_plain(params, gpu_db, expansion=mode)
+        cpu = CuckooHashingSparseDpfPirServer.create_plain(params, cpu_db, device="cpu",
+                                                           expansion=mode)
+        client = CuckooHashingSparseDpfPirClient.create_from_public_params(
+            gpu.get_public_params(), encrypt_decrypt.encrypt)
+        requests = client.create_plain_requests(queries)
+        want = [cpu.handle_request(r).dpf_pir_response.masked_response for r in requests]
+        check_sparse(client, want, queries, records.get, cpu_db.value_size,
+                     f"sparse_small ({mode}, plain)")
+        for tier in ("materialized", "streaming", "chunked"):
+            server_mod.set_tier_floor(tier)
+            plan = gpu.dense_server._plan_serving(3 * len(queries))
+            if plan.mode != tier:
+                raise AssertionError(f"sparse_small: the floor {tier} planned {plan}")
+            out = []
+            launches[f"{tier} ({mode})"] = counted(
+                lambda: out.append([gpu.handle_request(r).dpf_pir_response.masked_response
+                                    for r in requests]),
+                tier_launches(plan, mode, -(-3 * len(queries) // 32)),
+                f"sparse_small {tier} ({mode})")
+            if out[0] != want:
+                raise AssertionError(f"sparse_small {tier} ({mode}): card and plain differ")
+        server_mod.clear_tier_floor()
+    torch.cuda.synchronize()
+    emit({"phase": "sparse_small", "keys": len(keys), "buckets": params.num_buckets,
+          "selection_blocks": gpu_db.num_selection_blocks, "queries": len(queries),
+          "absent": SPARSE_ABSENT, "modes": list(EXPANSION_MODES),
+          "tiers": ["materialized", "streaming", "chunked"], "card_equals_plain": True,
+          "resolved": True, "launches": launches})
+    return launches
+
+
+def sparse_phase(dev, smi_line: str) -> dict:
+    """BASELINE.json configs[4] on one card: 2^24 keys, built through the
+    builder (its steps timed apart as well: the SHA256 hashing alone, the
+    native build of the slot array, the packing of the bucket rows, the
+    staging), served by `CuckooHashingSparseDpfPirServer` in walk mode to
+    batches of 64 and 128 queries on the planner's tier at the default
+    budget, then streaming and chunked under a 64 MiB budget with the tier
+    floor: launches from the plan, every present key resolved, every absent
+    key None, the tiers' bytes equal, the peak against the model. The
+    keys and values are dropped once built (the database keeps what it
+    serves): the checks rebuild a queried key's value from the values'
+    array. Returns (database, params, value_of, {run: launches})."""
+    import torch
+
+    from distributed_point_functions_tpu_torch import native
+    from distributed_point_functions_tpu_torch.capacity.model import (
+        CapacityModel,
+        set_default_capacity_model,
+    )
+    from distributed_point_functions_tpu_torch.pir import (
+        CuckooHashedDpfPirDatabase,
+        CuckooHashingSparseDpfPirClient,
+        CuckooHashingSparseDpfPirServer,
+    )
+    from distributed_point_functions_tpu_torch.pir import server as server_mod
+    from distributed_point_functions_tpu_torch.pir.cuckoo_database import (
+        cuckoo_slots,
+        pack_buckets,
+    )
+    from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import pack_key_batch
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    build = {}
+    t0 = time.perf_counter()
+    keys = sparse_keys(SPARSE_KEYS)
+    vrng = np.random.default_rng(13)
+    raw = vrng.integers(0, 256, (SPARSE_KEYS, SPARSE_VALUE_BYTES), dtype=np.uint8)
+    flat = raw.tobytes()
+    values = [flat[i:i + SPARSE_VALUE_BYTES]
+              for i in range(0, len(flat), SPARSE_VALUE_BYTES)]
+    del flat
+    build["data_ms"] = (time.perf_counter() - t0) * 1e3
+    params = CuckooHashingSparseDpfPirServer.generate_params(SPARSE_KEYS, seed=SPARSE_SEED)
+    t0 = time.perf_counter()
+    builder = CuckooHashedDpfPirDatabase.Builder().set_params(params)
+    for kv in zip(keys, values):
+        builder.insert(kv)
+    build["insert_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    db = builder.build()
+    build["build_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    db.dense_database.staged()
+    torch.cuda.synchronize()
+    build["stage_ms"] = (time.perf_counter() - t0) * 1e3
+    build["build_s"] = (build["insert_ms"] + build["build_ms"] + build["stage_ms"]) / 1e3
+    # The builder's steps again, each alone, on the same inputs.
+    seeds = [SPARSE_SEED + str(i).encode() for i in range(params.num_hash_functions)]
+    t0 = time.perf_counter()
+    native.cuckoo_hash_buckets(keys, seeds, params.num_buckets)
+    build["hash_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    slots = cuckoo_slots(params, keys)
+    build["native_build_ms"] = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(slots, db.slot_index):
+        raise AssertionError("sparse: two builds of one input differ")
+    t0 = time.perf_counter()
+    pack_buckets(slots, keys, values)
+    build["pack_ms"] = (time.perf_counter() - t0) * 1e3
+    del slots, builder, keys, values
+
+    def value_of(key):
+        if not key.startswith(b"k"):
+            return None
+        i = int(key[1:])
+        return bytes(raw[i])
+
+    occupancy = db.size / db.num_buckets
+
+    server = CuckooHashingSparseDpfPirServer.create_plain(params, db, device=dev)
+    client = CuckooHashingSparseDpfPirClient.create_from_public_params(
+        server.get_public_params(), encrypt_decrypt.encrypt)
+    qrng = np.random.default_rng(SEED + 20)
+    launches = {}
+    row_bytes = 4 * db.dense_database.staged().shape[2]
+    for nq in SPARSE_QUERIES:
+        queries = sparse_queries(qrng, SPARSE_KEYS, nq)
+        t0 = time.perf_counter()
+        r0, r1 = client.create_plain_requests(queries)
+        keygen_ms = (time.perf_counter() - t0) * 1e3
+        nk = len(r0.plain_request.dpf_keys)
+
+        def serve():
+            s0 = server.handle_plain_request(r0).dpf_pir_response.masked_response
+            s1 = server.handle_plain_request(r1).dpf_pir_response.masked_response
+            torch.cuda.synchronize()
+            return s0, s1
+
+        reference = None
+        for tier, budget, floor in (("default", None, None),
+                                    ("streaming", TIER_BUDGET, "streaming"),
+                                    ("chunked", TIER_BUDGET, "chunked")):
+            set_default_capacity_model(
+                None if budget is None else CapacityModel(selection_budget=budget))
+            server_mod.set_tier_floor(floor)
+            plan = server.dense_server._plan_serving(nk)
+            if floor is not None and plan.mode != floor:
+                raise AssertionError(f"sparse {nq}q: the floor {floor} planned {plan}")
+            run = f"{nq}q {plan.mode}"
+            t0 = time.perf_counter()
+            serve()  # warm-up, and the tier's staging
+            first_s = time.perf_counter() - t0
+            out = []
+            launches[run] = counted(lambda: out.append(serve()),
+                                    tier_launches(plan, "walk", -(-nk // 32)),
+                                    f"sparse {run}")
+            shares = out[0]
+            if reference is None:
+                reference = shares
+            elif shares != reference:
+                raise AssertionError(f"sparse {run}: bytes differ from the default tier's")
+            found = check_sparse(client, shares, queries, value_of, db.value_size,
+                                 f"sparse {run}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            server.handle_plain_request(r0)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            before = torch.cuda.memory_allocated(dev)
+            staged = stage_keys(r0.plain_request.dpf_keys, server.dense_server.walk_levels,
+                                device=dev)
+            packed_keys = pack_key_batch(*staged, server.dense_server.expand_levels)
+            keys_bytes = torch.cuda.memory_allocated(dev) - before
+            del staged, packed_keys
+            # The response rows the streaming and chunked tiers XOR into,
+            # at the bucket row's width.
+            response_bytes = (0 if plan.mode == "materialized"
+                              else 32 * (-(-nk // 32)) * row_bytes)
+            # Index vectors, and the caching allocator's granularity: it
+            # counts a cached block whole where the rest of it would be
+            # under 1 MiB, and the peak holds two blocks of a few MiB at
+            # a chunk (its leaf values and its selections).
+            allowed = (plan.selection_bytes_peak + keys_bytes + response_bytes
+                       + (4 << plan.expand_levels) + (1 << 16) + (2 << 20))
+            if peak > allowed:
+                raise AssertionError(
+                    f"sparse {run}: peak {peak} B above the model's "
+                    f"{plan.selection_bytes_peak} B plus keys and response ({allowed} B)")
+            times = host_ms(serve, SPARSE_REPS)
+            emit({"phase": "sparse", "config": "BASELINE.json configs[4], one card",
+                  "keys": SPARSE_KEYS, "value_bytes": SPARSE_VALUE_BYTES,
+                  "buckets": params.num_buckets, "hash_functions": params.num_hash_functions,
+                  "occupancy": occupancy, "selection_blocks": db.num_selection_blocks,
+                  "row_bytes": row_bytes, "key_bytes": db.key_size,
+                  "queries": nq, "absent": SPARSE_ABSENT, "keys_a_party": nk,
+                  "found": found, "tier": plan.mode, "expansion": "walk",
+                  "plan": dataclasses.asdict(plan), "tier_floor": server_mod.tier_floor(),
+                  "equals_default_tier": True, "launches": launches[run],
+                  **build, "keygen_ms": keygen_ms, "first_batch_s": first_s,
+                  "batch_ms": statistics.median(times), "batch_ms_all": times,
+                  "queries_per_sec": nq / statistics.median(times) * 1e3,
+                  "modeled_selection_bytes": plan.selection_bytes_peak,
+                  "measured_peak_bytes_one_party": peak,
+                  "staged_keys_bytes": keys_bytes, "response_bytes": response_bytes,
+                  "peak_less_keys_and_response_over_model_bytes":
+                      peak - keys_bytes - response_bytes - plan.selection_bytes_peak,
+                  **device_busy(lambda: server.handle_plain_request(r0)),
+                  "device": smi_line})
+    set_default_capacity_model(None)
+    server_mod.clear_tier_floor()
+    return db, params, value_of, launches
+
+
+def sparse_two_party_phase(db, params, value_of, dev, smi_line: str) -> dict:
+    """A Leader and a Helper `CuckooHashingSparseDpfPirServer` on the card
+    over the 2^24-key database; the client is built from the Leader's
+    `get_public_params()` bytes, its request carries the Helper's keys
+    hybrid-encrypted with the one-time pad's seed; 128 queries with
+    absent keys. Every value must resolve and every absent key be
+    `KeyNotFound`; round-trip ms by step (median of SPARSE_REPS rounds)."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.pir import (
+        CuckooHashingSparseDpfPirClient,
+        CuckooHashingSparseDpfPirServer,
+        KeyNotFound,
+    )
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    helper = CuckooHashingSparseDpfPirServer.create_helper(
+        params, db, encrypt_decrypt.decrypt, device=dev)
+
+    def sender(helper_request, while_waiting):
+        while_waiting()
+        return helper.handle_request(helper_request)
+
+    leader = CuckooHashingSparseDpfPirServer.create_leader(params, db, sender, device=dev)
+    wire = leader.get_public_params()
+    client = CuckooHashingSparseDpfPirClient.create_from_public_params(
+        wire, encrypt_decrypt.encrypt)
+    nq = SPARSE_QUERIES[-1]
+    queries = sparse_queries(np.random.default_rng(SEED + 21), SPARSE_KEYS, nq)
+    request, state = client.create_request(queries)
+    leader.handle_request(request)  # warm-up
+    out = []
+    plan = leader.dense_server._plan_serving(3 * nq)
+    launches = counted(lambda: out.append(leader.handle_request(request)),
+                       tier_launches(plan, "walk", -(-3 * nq // 32)), "sparse_two_party")
+    resolved = client.resolve(out[0], state)
+    for q, v in zip(queries, resolved):
+        want = value_of(q)
+        if want is None:
+            if not isinstance(v, KeyNotFound) or v.key != q:
+                raise AssertionError(f"sparse_two_party: absent key {q!r} gave {v!r}")
+        elif v != want + bytes(db.value_size - len(want)):
+            raise AssertionError(f"sparse_two_party: key {q!r} does not resolve")
+    rounds = {"create_request_ms": [], "handle_request_ms": [], "resolve_ms": [],
+              "round_trip_ms": []}
+    for _ in range(SPARSE_REPS):
+        t0 = time.perf_counter()
+        req, st = client.create_request(queries)
+        t1 = time.perf_counter()
+        resp = leader.handle_request(req)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        client.resolve(resp, st)
+        t3 = time.perf_counter()
+        for k, v in zip(rounds, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
+            rounds[k].append(v * 1e3)
+    emit({"phase": "sparse_two_party", "keys": SPARSE_KEYS, "queries": nq,
+          "absent": SPARSE_ABSENT, "tier": plan.mode, "expansion": "walk",
+          "public_params_bytes": len(wire), "resolved": nq, "launches": launches,
+          **{k: statistics.median(v) for k, v in rounds.items()}, "rounds_ms": rounds,
+          "queries_per_sec": nq / statistics.median(rounds["round_trip_ms"]) * 1e3,
+          **device_busy(lambda: leader.handle_request(request)), "device": smi_line})
     return launches
 
 
@@ -2156,6 +2533,15 @@ def main() -> int:
 
     # 7. Dense PIR's serving tiers at BASELINE configs[2].
     tier_counts = tiers_phase(rng, dev)
+
+    # Sparse PIR: the small database against the plain versions, then
+    # BASELINE configs[4] on one card, plain and as Leader and Helper. Its
+    # own generator, so the earlier phases' data stay as they were.
+    sparse_rng = np.random.default_rng(SEED + 30)
+    sparse_small_phase(sparse_rng, dev)
+    sparse_db, sparse_params, sparse_value_of, _ = sparse_phase(dev, smi_line)
+    sparse_two_party_phase(sparse_db, sparse_params, sparse_value_of, dev, smi_line)
+    del sparse_db, sparse_value_of
 
     # 8. Every ported kernel, with its launches from the run of the mode
     # (or path) that launches it.

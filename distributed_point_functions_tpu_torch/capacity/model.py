@@ -9,8 +9,11 @@ both forms the port holds it in, the expansion's leaf values (bit
 planes) and the selection blocks that `ops.expand_planes.leaf_blocks`
 writes from them, and both are alive while that kernel runs:
 
-* materialized: the leaf values and the selection matrix,
-  `2 * nkp * eff_blocks * 16`;
+* materialized: the leaf values of the covering subtree and the selection
+  matrix, `nkp * (leaf_blocks + eff_blocks) * 16` (`leaf_blocks` is
+  `2**expand_levels`, more than `eff_blocks` where the block count is not a
+  power of two: the expansion writes every leaf of the tree before
+  `leaf_blocks` keeps the first `eff_blocks`);
 * streaming: the cut state for the whole scan plus one chunk's leaf values
   and selections, `nkp * 16 * (2**cut_levels + 2 * 2**chunk_levels)` (the
   JAX model's double buffer);
@@ -63,10 +66,12 @@ class CapacityModel:
             return max(1, self._device_memory // _SELECTION_MEMORY_FRACTION)
         return _DEFAULT_SELECTION_BUDGET
 
-    def materialized_selection_bytes(self, num_keys: int, eff_blocks: int) -> int:
-        """The leaf values and the selection matrix, one 128-bit block per
-        (key, block) each."""
-        return 2 * padded_keys(num_keys) * eff_blocks * _SELECTION_BLOCK_BYTES
+    def materialized_selection_bytes(self, num_keys: int, eff_blocks: int,
+                                     leaf_blocks: Optional[int] = None) -> int:
+        """The leaf values (`leaf_blocks` blocks a key, default `eff_blocks`)
+        and the selection matrix (`eff_blocks`), one 128-bit block each."""
+        leaves = eff_blocks if leaf_blocks is None else leaf_blocks
+        return padded_keys(num_keys) * (leaves + eff_blocks) * _SELECTION_BLOCK_BYTES
 
     def streaming_selection_bytes(
         self, num_keys: int, cut_levels: int, chunk_levels: int

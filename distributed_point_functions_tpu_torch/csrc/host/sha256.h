@@ -1,9 +1,8 @@
 // SHA-256 (FIPS 180-4) — compact single-header implementation for the
 // native cuckoo table build. Implemented from the spec (message schedule +
 // 64-round compression with the standard K constants); no third-party
-// code. Verified against hashlib by the JAX package's differential tests
-// (tests/test_native_cuckoo.py); the port keeps this copy for its cuckoo
-// table build, which comes with sparse PIR.
+// code. The port's cuckoo table build (`cuckoo_build.cc`) uses it;
+// tests/test_torch_sparse_pir.py holds its bucket indices against hashlib.
 #pragma once
 
 #include <cstdint>

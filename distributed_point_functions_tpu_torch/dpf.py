@@ -467,7 +467,16 @@ class DistributedPointFunction:
             self._hierarchy_to_tree.append(tree_level)
             tree_levels_needed = max(tree_levels_needed, tree_level + 1)
         self._tree_levels_needed = tree_levels_needed
-        self._blocks_needed = [(b + 127) // 128 for b in self._bits_needed]
+        # A sampled type reads 16 bytes plus a refill for every tuple
+        # element but the last, which is more than `bits_needed` counts
+        # where an IntModN that is not last refills (the JAX package reads
+        # past its blocks there): the blocks cover what the sampling reads.
+        # The tree level does not move: any IntModN needs 7 levels of bits.
+        self._blocks_needed = [
+            max((b + 127) // 128,
+                0 if p.value_type.can_convert_directly()
+                else -(-(16 + p.value_type.refill_bytes(False)) // 16))
+            for p, b in zip(self.parameters, self._bits_needed)]
 
     # -- constructors -------------------------------------------------------
 

@@ -6,7 +6,10 @@ arrays): staged dense-PIR key arrays (`keys_from_arrays`), or one DPF or
 DCF key field by field, value corrections of incremental keys included,
 of any value type (`dpf_key_from_fields`, `dcf_key_from_fields`), or a
 MIC gate's key and public parameters (`mic_key_from_fields`,
-`mic_parameters_from_fields`). Records are plain bytes.
+`mic_parameters_from_fields`). Records are plain bytes, and a cuckoo-hashed
+database crosses as its parameters' fields, its slot list and its records
+(`cuckoo_database_from_fields`), so that the port serves the JAX
+package's exact bucket layout.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import numpy as np
 from .dcf import DcfKey
 from .dpf import CorrectionWord, DpfKey
 from .fss_gates import Interval, MicKey, MicParameters
+from .hashing import HashFamilyConfig
 from .ops.aes import limbs_to_u128
+from .pir.cuckoo_database import (
+    CuckooHashedDpfPirDatabase,
+    CuckooHashingParams,
+    pack_buckets,
+)
 from .pir.database import DenseDpfPirDatabase
 
 
@@ -127,3 +136,25 @@ def database_from_records(
     for r in records:
         builder.insert(r)
     return builder.build(device=device)
+
+
+def cuckoo_database_from_fields(
+    num_buckets: int, num_hash_functions: int, hash_family: int, seed: bytes,
+    slots: Sequence, records: dict, device=None,
+) -> CuckooHashedDpfPirDatabase:
+    """The port's sparse database with a given bucket layout: the cuckoo
+    parameters' fields, `slots` (bucket -> key bytes or None, as the JAX
+    package's `CuckooHashedDpfPirDatabase.slots`) and `records` (key ->
+    value bytes)."""
+    params = CuckooHashingParams(
+        num_buckets=int(num_buckets), num_hash_functions=int(num_hash_functions),
+        hash_family_config=HashFamilyConfig(hash_family=int(hash_family),
+                                            seed=bytes(seed)))
+    keys = [bytes(k) for k in records]
+    index = {k: i for i, k in enumerate(keys)}
+    slot_index = np.array([-1 if k is None else index[bytes(k)] for k in slots],
+                          dtype=np.int64)
+    words, key_size, value_size = pack_buckets(
+        slot_index, keys, [bytes(records[k]) for k in records])
+    return CuckooHashedDpfPirDatabase(words, key_size, value_size, params=params,
+                                      slots=slot_index, keys=keys, device=device)

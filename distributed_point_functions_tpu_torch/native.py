@@ -1,11 +1,12 @@
 """ctypes bindings to the port's native C++ host library (`csrc/host/`).
 
 The host side of the main path runs here: the client's batched dense-PIR
-key generation (`keygen_batch_dense`) and the server's walk of the shared
-all-zeros prefix while it stages a key batch (`evaluate_seeds`). The
-sources are the port's own copy of the JAX package's native oracle: AES-128
-(AES-NI when the CPU has it, a bytewise body otherwise), the MMO hash,
-batched seed walks and keygen.
+key generation (`keygen_batch_dense`), the server's walk of the shared
+all-zeros prefix while it stages a key batch (`evaluate_seeds`), and the
+sparse database's cuckoo table build (`cuckoo_build`, SHA256 hashing on
+all cores). The sources are the port's own copy of the JAX package's
+native oracle: AES-128 (AES-NI when the CPU has it, a bytewise body
+otherwise), the MMO hash, batched seed walks, keygen and the cuckoo build.
 
 The library builds at first use with `g++ -O2 -fPIC` (only `aesni.cc`
 with `-maes`), one compiler per source, all started together, into
@@ -37,10 +38,10 @@ _PKG = Path(__file__).resolve().parent
 HOST_SRC = _PKG / "csrc" / "host"
 BUILD_ROOT = _PKG / "build"
 
-SOURCES = ("aes128.cc", "aesni.cc", "dpf_kernels.cc", "keygen.cc")
-HEADERS = ("aes128.h",)
+SOURCES = ("aes128.cc", "aesni.cc", "dpf_kernels.cc", "keygen.cc", "cuckoo_build.cc")
+HEADERS = ("aes128.h", "sha256.h")
 LIB_NAME = "libdpf_native.so"
-CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread")
 # The one unit built with AES-NI; the library checks the CPU at run time
 # (`AesNiSupported`), so it loads on machines without it.
 AESNI_SOURCES = ("aesni.cc",)
@@ -97,7 +98,8 @@ def build() -> Path:
         if failed:
             raise RuntimeError("g++ failed for the host library:\n" + "\n".join(failed))
         subprocess.run(
-            [cxx, "-shared", *[str(o) for _, o, _ in jobs], "-o", str(work / LIB_NAME)],
+            [cxx, "-shared", "-pthread", *[str(o) for _, o, _ in jobs],
+             "-o", str(work / LIB_NAME)],
             check=True, capture_output=True,
         )
         try:
@@ -119,6 +121,10 @@ _SIGNATURES = {
     "dpf_evaluate_seeds": ([_P] * 7 + [_I64, ctypes.c_int, _I64, ctypes.c_int], None),
     "dpf_keygen_batch_dense": ([ctypes.c_char_p] * 3 + [_P] * 3
                                + [ctypes.c_int, _I64] + [_P] * 3, None),
+    "dpf_cuckoo_hash_buckets": ([_P, _P, _I64, _P, _P, ctypes.c_int, _I64, _P],
+                                ctypes.c_int),
+    "dpf_cuckoo_build": ([_P, _P, _I64, _P, _P, ctypes.c_int, _I64, _I64,
+                          ctypes.c_uint64, _P], ctypes.c_int),
 }
 
 
@@ -218,3 +224,53 @@ def keygen_batch_dense(root_seeds: np.ndarray, alphas: np.ndarray,
         _ptr(betas), levels, n, _ptr(cw_seeds), _ptr(cw_ctrl), _ptr(last_vc),
     )
     return cw_seeds, cw_ctrl, last_vc
+
+
+def _framed(items) -> tuple:
+    """(uint8 concatenation, uint64[n + 1] offsets) of byte strings."""
+    offsets = np.zeros(len(items) + 1, dtype=np.uint64)
+    np.cumsum(np.fromiter(map(len, items), dtype=np.uint64, count=len(items)),
+              out=offsets[1:])
+    return np.frombuffer(b"".join(items), dtype=np.uint8), offsets
+
+
+def cuckoo_hash_buckets(keys, seeds, num_buckets: int) -> np.ndarray:
+    """int64[n, len(seeds)]: hash function i's bucket of key k,
+    SHA256(seeds[i] || key) mod num_buckets (`hashing/sha256_hash_family.py`)."""
+    lib = get_lib()
+    keys_concat, key_offsets = _framed(keys)
+    seeds_concat, seed_offsets = _framed(list(seeds))
+    n = key_offsets.shape[0] - 1
+    out = np.empty((n, len(seeds)), dtype=np.int64)
+    rc = lib.dpf_cuckoo_hash_buckets(
+        _ptr(keys_concat), _ptr(key_offsets), n, _ptr(seeds_concat),
+        _ptr(seed_offsets), len(seeds), num_buckets, _ptr(out))
+    if rc != 0:
+        raise ValueError(f"dpf_cuckoo_hash_buckets rejected its arguments (rc={rc})")
+    return out
+
+
+def cuckoo_build(keys, seeds, num_buckets: int, max_relocations: int,
+                 rng_seed: int = 0x5EED) -> np.ndarray:
+    """The cuckoo table of `keys` (`csrc/host/cuckoo_build.cc`): int64[num_buckets],
+    the index of the key in each bucket or -1, equal to the JAX package's
+    `native.cuckoo_build` for the same arguments.
+
+    `seeds[i]`: hash function i's whole SHA256 prefix (the family seed
+    followed by the function's derivation seed, `hashing/hash_family.py`).
+    Raises `RuntimeError` when a key cannot be placed within
+    `max_relocations` evictions, as `CuckooHashTable.insert` with no stash
+    does."""
+    lib = get_lib()
+    keys_concat, key_offsets = _framed(keys)
+    seeds_concat, seed_offsets = _framed(list(seeds))
+    out = np.empty(num_buckets, dtype=np.int64)
+    rc = lib.dpf_cuckoo_build(
+        _ptr(keys_concat), _ptr(key_offsets), key_offsets.shape[0] - 1,
+        _ptr(seeds_concat), _ptr(seed_offsets), len(seeds), num_buckets,
+        max_relocations, rng_seed, _ptr(out))
+    if rc == -1:
+        raise RuntimeError("cuckoo insertion failed: relocation budget exhausted")
+    if rc != 0:
+        raise ValueError(f"dpf_cuckoo_build rejected its arguments (rc={rc})")
+    return out

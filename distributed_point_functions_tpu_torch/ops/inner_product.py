@@ -8,7 +8,8 @@ record whose bit is 1, as a mask-and-XOR over record chunks.
 running result (the streaming and chunked tiers). `xor_counts_plain` is
 the plain version of kernel K7, the v1 inner product's per-value-bit
 selection counts, and `parity_pack` the recombination that turns those
-counts into the XOR product.
+counts into the XOR product. `pack_selection_bits_np` packs bits into
+selection blocks on the host (test data).
 
 Layout (all little-endian, words as int32):
 
@@ -24,6 +25,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def pack_selection_bits_np(bits: np.ndarray) -> np.ndarray:
+    """bool/uint [..., n] -> uint32[..., ceil(n/128), 4] packed blocks in
+    the layout above."""
+    n = bits.shape[-1]
+    nb = (n + 127) // 128
+    padded = np.zeros(bits.shape[:-1] + (nb * 128,), dtype=np.uint32)
+    padded[..., :n] = bits.astype(np.uint32) & 1
+    lanes = padded.reshape(bits.shape[:-1] + (nb, 4, 32))
+    return (lanes << np.arange(32, dtype=np.uint32)).sum(axis=-1, dtype=np.uint32)
 
 
 def _xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:

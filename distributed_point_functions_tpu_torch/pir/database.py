@@ -56,20 +56,44 @@ def words_to_record_bytes(
     return [raw[q, :size].tobytes() for q in range(num_keys)]
 
 
-def _pack_records(records: Sequence[bytes], num_padded: int, record_bytes: int):
-    buf = np.zeros((num_padded, record_bytes), dtype=np.uint8)
+def place_records(rows: np.ndarray, records: Sequence[bytes], lengths: np.ndarray) -> None:
+    """Write record i's bytes at the start of row i of `rows` (uint8[m, w],
+    m >= len(records), a view of any strides; `lengths` their lengths),
+    leaving the rest as it is. One join and one scatter: records of one
+    length are a reshape, ragged ones are placed by their offsets (no
+    per-record Python loop)."""
     n = len(records)
-    lengths = np.fromiter((len(r) for r in records), dtype=np.int64, count=n)
-    if n and (lengths == lengths[0]).all():
-        width = int(lengths[0])
-        if width:
-            buf[:n, :width] = np.frombuffer(
-                b"".join(records), dtype=np.uint8
-            ).reshape(n, width)
+    if not n:
+        return
+    flat = np.frombuffer(b"".join(records), dtype=np.uint8)
+    if (lengths == lengths[0]).all():
+        rows[:n, :lengths[0]] = flat.reshape(n, int(lengths[0]))
     else:
-        for i, r in enumerate(records):
-            buf[i, : len(r)] = np.frombuffer(r, dtype=np.uint8)
-    return np.ascontiguousarray(buf).view("<u4").astype(np.uint32)
+        row = np.repeat(np.arange(n), lengths)
+        col = np.arange(flat.size) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+        rows[row, col] = flat
+
+
+def record_lengths(records: Sequence[bytes]) -> np.ndarray:
+    return np.fromiter(map(len, records), dtype=np.int64, count=len(records))
+
+
+def records_to_rows(records: Sequence[bytes], num_rows: int, row_bytes: int) -> np.ndarray:
+    """uint8[num_rows, row_bytes]: record i's bytes at the start of row i,
+    zeros elsewhere (`place_records`)."""
+    rows = np.zeros((num_rows, row_bytes), dtype=np.uint8)
+    place_records(rows, records, record_lengths(records))
+    return rows
+
+
+def _pack_records(records: Sequence[bytes], num_padded: int, record_bytes: int):
+    return records_to_rows(records, num_padded, record_bytes).view("<u4").astype(np.uint32)
+
+
+def padded_records(size: int) -> int:
+    """The staged record count of `size` records: a multiple of 128, at
+    least 128."""
+    return max(128, ((size + 127) // 128) * 128)
 
 
 class DenseDpfPirDatabase:
@@ -97,6 +121,30 @@ class DenseDpfPirDatabase:
 
     def __init__(self, records: Sequence[bytes], device=None,
                  inner_product: str = "v2"):
+        records = [bytes(r) for r in records]
+        max_value_size = max((len(r) for r in records), default=0)
+        self._setup(len(records), max_value_size, device, inner_product)
+        self._host_words = _pack_records(
+            records, self._num_padded, max(4, ((max_value_size + 3) // 4) * 4))
+
+    @classmethod
+    def from_words(cls, words: np.ndarray, size: int, max_value_size: int,
+                   device=None, inner_product: str = "v2") -> "DenseDpfPirDatabase":
+        """A database over an image already packed on the host: `words`
+        uint32[padded_records(size), W] with 4W >= max_value_size, record i
+        in row i, zero rows past `size` (taken as is, not copied)."""
+        db = cls.__new__(cls)
+        db._setup(size, max_value_size, device, inner_product)
+        if (words.dtype != np.uint32 or words.ndim != 2
+                or words.shape[0] != db._num_padded
+                or 4 * words.shape[1] < max(4, max_value_size)):
+            raise ValueError(
+                f"words must be uint32[{db._num_padded}, W] with 4W >= "
+                f"{max_value_size}, got {words.dtype}{list(words.shape)}")
+        db._host_words = words
+        return db
+
+    def _setup(self, size: int, max_value_size: int, device, inner_product: str):
         if inner_product not in INNER_PRODUCTS:
             raise ValueError(
                 f"inner_product must be one of {INNER_PRODUCTS}, got "
@@ -104,18 +152,15 @@ class DenseDpfPirDatabase:
             )
         self._inner_product = inner_product
         self._device = resolve_device(device)
-        records = [bytes(r) for r in records]
-        self._size = len(records)
-        self._max_value_size = max((len(r) for r in records), default=0)
-        self._num_padded = max(128, ((self._size + 127) // 128) * 128)
-        record_bytes = max(4, ((self._max_value_size + 3) // 4) * 4)
+        self._size = size
+        self._max_value_size = max_value_size
+        self._num_padded = padded_records(size)
         staged_records = -(-self._num_padded // 4096) * 4096
         if inner_product == "v1" and staged_records > MAX_RECORDS_EXACT:
             raise ValueError(
                 f"the v1 inner product serves at most {MAX_RECORDS_EXACT} "
                 f"records; this database stages {staged_records}"
             )
-        self._host_words = _pack_records(records, self._num_padded, record_bytes)
         self._db_perm = None
         self._streaming = None  # (cut_levels, chunks)
         self._chunked = None  # (granule_blocks, staging)

@@ -15,7 +15,8 @@ the walk in numpy, is the plain version the tests hold the native walk
 against. `chunked_pir_inner_products` is the chunked serving tier: one
 chunk root at a time walked down its path bits (K8), its subtree expanded
 and XORed into the result against its span of the database (K1's
-accumulate entry).
+accumulate entry). `selection_blocks_for_keys` stages a batch and expands
+its selection blocks in one call (the JAX package's entry of that name).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..ops.inner_product_kernels import xor_inner_product_accumulate
 from ..ops.words import to_tensors
 from .dense_eval_planes import (
     DEFAULT_EXPANSION,
+    evaluate_selection_blocks_planes,
     exit_block_nodes,
     expand_planned,
     expansion_plan,
@@ -133,6 +135,20 @@ def stage_keys(
     dev = resolve_device(device)
     return tuple(to_tensors(stage_keys_host(keys, host_walk_levels), dev))
 
+
+
+def selection_blocks_for_keys(dpf, keys: Sequence[DpfKey], num_blocks: int,
+                              device=None, mode: str = DEFAULT_EXPANSION):
+    """The first `num_blocks` selection blocks of a batch of one-level
+    128-bit XOR DPF keys of `dpf`: int32[nk, num_blocks, 4] on `device`
+    (the JAX package's `selection_blocks_for_keys`). The shared all-zeros
+    prefix is walked on the host and only the covering subtree expanded,
+    in `mode`."""
+    total_levels = dpf._tree_levels_needed - 1
+    expand_levels = min(max(0, (num_blocks - 1).bit_length()), total_levels)
+    staged = stage_keys(keys, total_levels - expand_levels, device=device)
+    return evaluate_selection_blocks_planes(
+        *staged, expand_levels=expand_levels, num_blocks=num_blocks, mode=mode)
 
 
 def chunked_pir_inner_products(

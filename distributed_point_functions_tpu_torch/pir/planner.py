@@ -81,7 +81,10 @@ def plan_dense_serving(
     cm = default_capacity_model()
     budget = cm.selection_budget_bytes()
     streaming_ok = expand_levels > 0 and (1 << expand_levels) >= num_blocks
-    mat_bytes = cm.materialized_selection_bytes(num_keys, num_blocks)
+    # The expansion holds every leaf of the covering subtree beside the
+    # selection matrix: more than num_blocks where the tree is ragged.
+    mat_bytes = cm.materialized_selection_bytes(
+        num_keys, num_blocks, max(num_blocks, 1 << expand_levels))
     over_budget = mat_bytes > budget and expand_levels > 0
     if force_mode == "streaming" and not streaming_ok:
         force_mode = "chunked"

@@ -132,6 +132,15 @@ class DpfPirServer:
             return self._handle_leader_request(request)
         return self._handle_helper_request(request)
 
+    def get_public_params(self) -> bytes:
+        """The `PirServerPublicParams` bytes a client reads before any
+        query (`serialization.serialize_public_params`): the dense server
+        has none, so the base gives the empty message; the sparse server
+        gives its cuckoo parameters."""
+        from .. import serialization
+
+        return serialization.serialize_public_params(None)
+
     def handle_plain_request(self, request):
         raise NotImplementedError
 

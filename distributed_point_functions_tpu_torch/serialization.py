@@ -8,7 +8,11 @@ the reference's schemas (`protos/distributed_point_function.proto`,
 its modulus as a `Value.Integer`, and `TupleType`, nested ones included),
 `DpfParameters`, `DpfKey` with its `CorrectionWord`s, the
 `EvaluationContext` with its partial evaluations, the four
-`DpfPirRequest` messages, `PirRequest` and `PirResponse`. Each `serialize_*` gives the bytes the JAX package's
+`DpfPirRequest` messages, `PirRequest`, `PirResponse`, and the server's
+`PirServerPublicParams` (empty for the dense server, the cuckoo hashing
+parameters with their `HashFamilyConfig` for the sparse one,
+`protos/private_information_retrieval.proto:55-60`,
+`protos/hash_family_config.proto`). Each `serialize_*` gives the bytes the JAX package's
 `*_to_proto(...).SerializeToString()` gives for the same object, and each
 `parse_*` reads any proto3 encoding of the message.
 
@@ -28,8 +32,7 @@ The decoder skips unknown fields of every wire type (groups included) and
 fields whose wire type does not match the schema, merges repeated
 occurrences of a singular submessage, takes the last occurrence of a
 scalar and the last member set of a oneof, and raises `ValueError` on
-truncated or malformed bytes. Not covered here: the cuckoo public
-parameters.
+truncated or malformed bytes.
 """
 
 from __future__ import annotations
@@ -84,6 +87,14 @@ def _int32(field: int, v: int) -> bytes:
     sign-extended to ten bytes."""
     if not -(1 << 31) <= v < (1 << 31):
         raise ValueError(f"int32 field {field} out of range: {v}")
+    return _key(field, _VARINT) + _varint(v & _U64) if v else b""
+
+
+def _int64(field: int, v: int) -> bytes:
+    """A proto3 `int64` field, left out at 0; negative values are
+    ten-byte varints."""
+    if not -(1 << 63) <= v < (1 << 63):
+        raise ValueError(f"int64 field {field} out of range: {v}")
     return _key(field, _VARINT) + _varint(v & _U64) if v else b""
 
 
@@ -256,6 +267,21 @@ def serialize_pir_response(response: "messages.PirResponse") -> bytes:
         _key(1, _LEN) + _varint(len(r)) + bytes(r) for r in masked))
 
 
+def serialize_public_params(params=None) -> bytes:
+    """`PirServerPublicParams`: empty for the dense server (`params` None),
+    else its `cuckoo_hashing_sparse_dpf_pir_server_params` member (1) of
+    `pir.cuckoo_database.CuckooHashingParams`: `hash_family_config` (1,
+    always written, as the JAX package touches it), `num_hash_functions`
+    (2) and `num_buckets` (3)."""
+    if params is None:
+        return b""
+    config = params.hash_family_config
+    return _message(1, _message(1, _int32(1, config.hash_family)
+                                + _bytes(2, bytes(config.seed)))
+                    + _int32(2, params.num_hash_functions)
+                    + _int64(3, params.num_buckets))
+
+
 # ---------------------------------------------------------------------------
 # Decoder
 # ---------------------------------------------------------------------------
@@ -377,6 +403,11 @@ def _oneof(data: bytes, schema: dict) -> Tuple[Optional[int], list]:
 def _as_int32(v: int) -> int:
     v &= 0xFFFFFFFF
     return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def _as_int64(v: int) -> int:
+    v &= _U64
+    return v - (1 << 64) if v >= (1 << 63) else v
 
 
 def parse_block(data: bytes) -> int:
@@ -566,3 +597,23 @@ def parse_pir_response(data: bytes) -> "messages.PirResponse":
         bytes(r) for r in _fields(inner, {1: _LEN}).get(1, [])]
     return messages.PirResponse(
         dpf_pir_response=messages.DpfPirResponse(masked_response=masked))
+
+
+def parse_public_params(data: bytes):
+    """`PirServerPublicParams` bytes -> `pir.cuckoo_database.CuckooHashingParams`,
+    or None when no cuckoo parameters are set (the dense server's)."""
+    from .hashing.hash_family_config import HashFamilyConfig
+    from .pir.cuckoo_database import CuckooHashingParams
+
+    member, values = _oneof(data, {1: _LEN})
+    if member is None:
+        return None
+    f = _fields(b"".join(values), {1: _LEN, 2: _VARINT, 3: _VARINT})
+    config = _fields(_sub(f, 1) or b"", {1: _VARINT, 2: _LEN})
+    return CuckooHashingParams(
+        num_buckets=_as_int64(f.get(3, [0])[-1]),
+        num_hash_functions=_as_int32(f.get(2, [0])[-1]),
+        hash_family_config=HashFamilyConfig(
+            hash_family=_as_int32(config.get(1, [0])[-1]),
+            seed=bytes(config.get(2, [b""])[-1])),
+    )

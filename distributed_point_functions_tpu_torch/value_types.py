@@ -125,6 +125,11 @@ class ValueType:
         """Pseudorandom bits needed for one uniform element."""
         raise NotImplementedError
 
+    def refill_bytes(self, update: bool) -> int:
+        """The bytes past the accumulator's first 16 that sampling one
+        element reads (`sample_host`, `dev_sample` with `update`)."""
+        raise NotImplementedError
+
     def elements_per_block(self) -> int:
         if self.can_convert_directly() and self.total_bit_size() <= 128:
             return 128 // self.total_bit_size()
@@ -257,6 +262,9 @@ class _IntValueType(_LimbValueType):
 
     def bits_needed(self, security_parameter: float) -> int:
         return self.bits
+
+    def refill_bytes(self, update: bool) -> int:
+        return self.bits // 8 if update else 0
 
     def zero(self):
         return 0
@@ -399,6 +407,9 @@ class IntModNType(_LimbValueType):
         return 8 * self.bytes_needed_joint(1, self.base_bits, self.modulus,
                                            security_parameter)
 
+    def refill_bytes(self, update: bool) -> int:
+        return self.base_bits // 8 if update else 0
+
     def validate(self, v) -> None:
         if not isinstance(v, int) or not (0 <= v < self.modulus):
             raise ValueError(f"value {v!r} out of range mod {self.modulus}")
@@ -487,6 +498,12 @@ class TupleType(ValueType):
             bits += 8 * IntModNType.bytes_needed_joint(
                 len(mod_n), e.base_bits, e.modulus, security_parameter)
         return bits
+
+    def refill_bytes(self, update: bool) -> int:
+        # Every element but the last refills the accumulator.
+        n = len(self.elements)
+        return sum(e.refill_bytes(update or i + 1 < n)
+                   for i, e in enumerate(self.elements))
 
     def validate(self, v) -> None:
         if not isinstance(v, tuple) or len(v) != len(self.elements):

@@ -7,7 +7,8 @@
 * CPU tensors go through the plain versions and leave the kernel launch
   counters at 0; a tensor on any other device raises.
 * No `try` on the port's serving path or in its DPF/DCF evaluation gives
-  way to a plain version.
+  way to a plain version; the sparse database's cuckoo build has no `try`
+  and reads no environment variable (SHA256 runs the native build).
 """
 
 import ast
@@ -58,6 +59,20 @@ def test_import_loads_no_jax():
             "distributed_point_functions_tpu_torch.fss_gates",
             "distributed_point_functions_tpu_torch.fss_gates.prng",
             "distributed_point_functions_tpu_torch.fss_gates.multiple_interval_containment",
+            "distributed_point_functions_tpu_torch.hashing",
+            "distributed_point_functions_tpu_torch.hashing.cuckoo_hash_table",
+            "distributed_point_functions_tpu_torch.hashing.farm_hash_family",
+            "distributed_point_functions_tpu_torch.hashing.hash_family",
+            "distributed_point_functions_tpu_torch.hashing.hash_family_config",
+            "distributed_point_functions_tpu_torch.hashing.multiple_choice_hash_table",
+            "distributed_point_functions_tpu_torch.hashing.sha256_hash_family",
+            "distributed_point_functions_tpu_torch.hashing.simple_hash_table",
+            "distributed_point_functions_tpu_torch.pir.cuckoo_database",
+            "distributed_point_functions_tpu_torch.pir.sparse_client",
+            "distributed_point_functions_tpu_torch.pir.sparse_server",
+            "distributed_point_functions_tpu_torch.testing.pir_generators",
+            "distributed_point_functions_tpu_torch.testing.pir_selection_bits",
+            "distributed_point_functions_tpu_torch.testing.request_generator",
             } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
@@ -218,7 +233,9 @@ def test_wrappers_raise_for_other_devices():
      "dcf.py", "value_types.py", "ops/limb.py", "pir/dense_eval.py",
      "pir/client.py", "pir/messages.py", "prng.py", "serialization.py",
      "proto_validator.py", "interop.py", "fss_gates/multiple_interval_containment.py",
-     "fss_gates/prng.py"],
+     "fss_gates/prng.py", "pir/cuckoo_database.py", "pir/sparse_server.py",
+     "pir/sparse_client.py", "hashing/cuckoo_hash_table.py",
+     "hashing/hash_family_config.py", "hashing/sha256_hash_family.py"],
 )
 def test_serving_path_has_no_try(module):
     tree = ast.parse((PORT_DIR / module).read_text())
@@ -227,7 +244,8 @@ def test_serving_path_has_no_try(module):
 
 @pytest.mark.parametrize(
     "module", ["native.py", "dpf.py", "pir/dense_eval.py", "pir/server.py",
-               "pir/client.py", "prng.py", "serialization.py"])
+               "pir/client.py", "prng.py", "serialization.py", "pir/cuckoo_database.py",
+               "pir/sparse_server.py", "pir/sparse_client.py", "pir/database.py"])
 def test_host_path_reads_no_environment(module):
     """No environment variable selects the host library's numpy twins or
     anything else on the host side of the main path."""

@@ -135,11 +135,16 @@ BUDGETS = (None, PINNED_BUDGET, 64 << 20, 1 << 30)
 class _PortBytes(jmodel.CapacityModel):
     """The JAX model with the port's byte counts: keys padded to 32, and
     the leaf values counted beside the selections where the port holds
-    both (materialized, chunked; streaming's double buffer already does).
-    The JAX package's own split and plan logic then runs on them."""
+    both (materialized, chunked; streaming's double buffer already does),
+    the materialized tier's over `leaf_blocks` (the covering subtree's
+    leaves where they outnumber the blocks; set per geometry). The JAX
+    package's own split and plan logic then runs on them."""
+
+    leaf_blocks = None
 
     def materialized_selection_bytes(self, num_keys, eff_blocks):
-        return 2 * super().materialized_selection_bytes(padded_keys(num_keys), eff_blocks)
+        leaves = eff_blocks if self.leaf_blocks is None else self.leaf_blocks
+        return super().materialized_selection_bytes(padded_keys(num_keys), eff_blocks + leaves)
 
     def streaming_selection_bytes(self, num_keys, cut_levels, chunk_levels):
         return super().streaming_selection_bytes(
@@ -223,6 +228,7 @@ def test_planner_matches_jax(port_model, num_keys, num_blocks, expand_levels):
     fields = [f.name for f in dataclasses.fields(port.pir.planner.ServingPlan)]
     for budget, force in itertools.product(BUDGETS, (None, "streaming", "chunked")):
         _, theirs = port_model(80 << 30, budget)
+        theirs.leaf_blocks = max(num_blocks, 1 << expand_levels)
         kw = dict(num_keys=num_keys, num_blocks=num_blocks, expand_levels=expand_levels,
                   force_mode=force)
         a = plan_dense_serving(**kw)
