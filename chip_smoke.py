@@ -94,6 +94,30 @@ non-zero before printing a result. Phases, one JSON line each:
    native and the numpy walk, each role's serve, the mask, the combine,
    the whole `handle_request` and the unmask), the round trip's q/s over
    14 rounds with its spread, and the device's idle share.
+   Then `serving` (the serving runtime at the same configuration): a
+   Helper and a Leader session, each over its own database on the card
+   and behind a `FramedTcpServer` on loopback, the Leader reaching the
+   Helper through a `TcpTransportPool`; 4 client processes of 16
+   threads send 4,096 framed requests of one query each, closed loop
+   (`ServingConfig(max_batch_size=128, max_wait_ms=2.0)`). First the
+   kernels of every bucket from 1 to 128 keys at this size (K4 x 2,
+   `leaf_blocks`, K1) against their plain versions on the card; then
+   every answer through `handle_response`, and each party's own
+   counted launches (its session's, counted on its batch worker) equal
+   to the sum over its batches formed of each bucket's plan
+   (`tier_launches`), the process's counts to the two parties' sum. The line gives q/s, p50 and p99 latency, batches
+   and keys a batch per party, the pad-waste share, each party's
+   evaluation ms, the device's idle share (the union of kernel
+   intervals in a `torch.profiler` trace of 128 requests) and one
+   sequential client's 256 requests. Then `serving_rotation`: both
+   parties rotate to generation 1, a delta of 64 rows
+   (`Builder.update(...).build_from(prev)`), under a 1,024-request wave
+   that queries the updated rows half the time; every answer must be
+   its record's value in the generation its Leader share bound to, every
+   request sent after the rotation generation 1's, both stagings a
+   delta (`bytes_saved > 0`), generation 0's staging freed and
+   `torch.cuda.memory_allocated` back within 2 MiB; staleness ms, bytes
+   staged, saved and freed, mismatch retries.
 6. The DPF and DCF paths, each run with every launch count set to 0
    just before it and checked just after:
    - `dcf`: `DistributedComparisonFunction.create(32, IntType(64))`,
@@ -249,6 +273,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -1834,6 +1859,474 @@ def two_party_phase(rng, dev, db, records, walk_levels: int, smi_line: str) -> d
     return launches
 
 
+# The serving phase: client processes and threads a process (64 clients),
+# the requests of the closed loop and of the rotation wave, the
+# sequential baseline, the rows the rotation updates, and the requests of
+# the device-idle trace.
+SERVING_PROCESSES = 4
+SERVING_THREADS = 16
+SERVING_REQUESTS = 4096
+SERVING_ROTATION_REQUESTS = 1024
+SERVING_SEQUENTIAL = 256
+SERVING_UPDATES = 64
+SERVING_TRACED = 128
+
+
+def merged_busy_ms(intervals) -> float:
+    """Length (ms) of the union of (start_us, end_us) intervals: the time
+    the device ran at least one kernel, on any stream."""
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def wire_digest(data: bytes) -> bytes:
+    import hashlib
+
+    return hashlib.sha256(data).digest()[:16]
+
+
+def serving_client(root: str, conn, port: int, num_records: int, seed: int,
+                   left, done) -> None:
+    """A client process of the serving phase (started with `spawn`; it
+    never touches the card). Per command `(threads, hot, hot_share)` from
+    the pipe it runs `threads` closed-loop threads, each on its own TCP
+    connection to the Leader, one query a request (record `hot[k]` with
+    probability `hot_share`, else uniform), until the shared count `left`
+    reaches 0, adding each answer to `done`; then it sends back
+    [(index, answer, latency s, request digest, perf_counter at send)]. A
+    failed request is sent back as its exception. None ends the process."""
+    import threading
+
+    sys.path.insert(0, root)
+    from distributed_point_functions_tpu_torch import serialization
+    from distributed_point_functions_tpu_torch.pir import DenseDpfPirClient
+    from distributed_point_functions_tpu_torch.serving import transport
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    client = DenseDpfPirClient.create(num_records, encrypt_decrypt.encrypt)
+    wave = 0
+    socks = {}  # thread index -> its connection, kept across waves
+    conn.send("ready")
+    while (cmd := conn.recv()) is not None:
+        threads, hot, hot_share = cmd
+        wave += 1
+        out, errors, lock = [], [], threading.Lock()
+
+        def run(t):
+            rng = np.random.default_rng([seed, wave, t])
+            while not errors:
+                with left.get_lock():
+                    if left.value <= 0:
+                        return
+                    left.value -= 1
+                i = (hot[int(rng.integers(0, len(hot)))]
+                     if hot and rng.random() < hot_share
+                     else int(rng.integers(0, num_records)))
+                sent = time.perf_counter()
+                try:
+                    if t not in socks:
+                        socks[t] = socket.create_connection(("127.0.0.1", port))
+                    request, state = client.create_request([i])
+                    wire = serialization.serialize_pir_request(client.dpf, request)
+                    transport.send_msg(socks[t], wire)
+                    response = serialization.parse_pir_response(transport.recv_msg(socks[t]))
+                    answer = client.handle_response(response, state)[0]
+                except Exception as e:  # noqa: BLE001 - sent to the parent
+                    errors.append(e)
+                    return
+                latency = time.perf_counter() - sent
+                with lock:
+                    out.append((i, answer, latency, wire_digest(wire), sent))
+                with done.get_lock():
+                    done.value += 1
+
+        pool = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join()
+        conn.send(errors[0] if errors else out)
+    for sock in socks.values():
+        sock.close()
+    conn.close()
+
+
+def walk_selections_plain(staged, expand_levels: int, num_blocks: int):
+    """The selection blocks of staged keys through the plain versions of
+    walk mode's kernels (K4's head and tail, K2 for any level between,
+    `leaf_blocks`), on the staged tensors' device: what
+    `evaluate_selection_blocks_planes(..., mode="walk")` computes with the
+    kernels."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.ops import expand_planes as ep
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
+        exit_block_nodes,
+        expansion_plan,
+        pack_key_batch,
+    )
+
+    nk = staged[0].shape[0]
+    state, ctrl, cwp, cwl, cwr, vc = pack_key_batch(*staged, expand_levels)
+    kg = ctrl.shape[0]
+    plan = expansion_plan("walk", kg, expand_levels)
+    head, tail, _ = plan
+    if not tail:
+        raise AssertionError("walk mode's plan has no tail")
+    if head:
+        state, ctrl = ep.walk_descend_plain(state, ctrl, cwp[:head], cwl[:head],
+                                            cwr[:head], node_lanes=kg)
+    for lvl in range(head, expand_levels - tail):
+        state, ctrl = ep.expand_level_plain(state, ctrl, cwp[lvl], cwl[lvl], cwr[lvl])
+    a = expand_levels - tail
+    values, _ = ep.walk_descend_plain(state, ctrl, cwp[a:], cwl[a:], cwr[a:], vc,
+                                      value_hash=True, node_lanes=kg)
+    block_node = torch.from_numpy(
+        exit_block_nodes(expand_levels, *plan, True, num_blocks)).to(values.device)
+    return ep.leaf_blocks_plain(
+        values, ep.node_blocks(block_node, values.shape[-1] // kg), num_blocks)[:nk]
+
+
+def serving_phase(dev, records, smi_line: str) -> None:
+    """BASELINE.json configs[1] served as deployed by the serving runtime:
+    a Helper and a Leader session, each over its own database on the card
+    and behind a `FramedTcpServer` on loopback, the Leader reaching the
+    Helper through a pool of TCP connections; `SERVING_PROCESSES` client
+    processes of `SERVING_THREADS` threads send framed `LeaderRequest`s of
+    one query each, closed loop. Each session's batcher coalesces them into
+    power-of-two buckets on its own CUDA stream. Checks the kernels of
+    every bucket from 1 to 128 keys at this size against their plain
+    versions, every answer through `handle_response`, and the launches
+    against the plans of the buckets formed; prints the `serving` line
+    (q/s, latency, batches, pad waste, idle share) beside one sequential
+    client's. Then rotates both parties to generation 1 (a delta of
+    `SERVING_UPDATES` rows) under the same traffic and gates every
+    answer's generation, the delta, and the freed staging
+    (`serving_rotation`)."""
+    import multiprocessing
+    import threading
+
+    import torch
+
+    from distributed_point_functions_tpu_torch.ops import cuda_lib
+    from distributed_point_functions_tpu_torch.ops import inner_product_kernels as ipk
+    from distributed_point_functions_tpu_torch.ops.inner_product import xor_inner_product
+    from distributed_point_functions_tpu_torch.pir import (
+        DenseDpfPirClient,
+        DenseDpfPirDatabase,
+        DenseDpfPirServer,
+    )
+    from distributed_point_functions_tpu_torch.pir.dense_eval import stage_keys
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes import (
+        evaluate_selection_blocks_planes,
+    )
+    from distributed_point_functions_tpu_torch.serving import (
+        FramedTcpServer,
+        HelperSession,
+        LeaderSession,
+        RotationCoordinator,
+        ServingConfig,
+        SnapshotManager,
+        TcpTransportPool,
+    )
+    from distributed_point_functions_tpu_torch.serving.service import evaluated_generation
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    t_phase = time.perf_counter()
+    steps = {}
+    rng = np.random.default_rng(SEED + 40)
+    config = ServingConfig(max_batch_size=128, max_wait_ms=2.0)
+    ldb = DenseDpfPirDatabase(records, device=dev)
+    hdb = DenseDpfPirDatabase(records, device=dev)
+    ldb.staged()
+    hdb.staged()
+    helper = HelperSession(hdb, encrypt_decrypt.decrypt, config=config, device=dev)
+    helper_tcp = FramedTcpServer(helper.handle_wire, host="127.0.0.1", name="helper").start()
+    leader = LeaderSession(
+        ldb, TcpTransportPool("127.0.0.1", helper_tcp.port,
+                              SERVING_PROCESSES * SERVING_THREADS),
+        config=config, device=dev)
+    # The generation each request's Leader share bound to, by request digest.
+    bound = {}
+
+    def leader_wire(data):
+        reply = leader.handle_wire(data)
+        bound[wire_digest(data)] = evaluated_generation()
+        return reply
+
+    leader_tcp = FramedTcpServer(leader_wire, host="127.0.0.1", name="leader").start()
+    # The clients start now, so that they import while the databases
+    # stage and the buckets are checked.
+    ctx = multiprocessing.get_context("spawn")
+    left, done = ctx.Value("i", 0), ctx.Value("i", 0)
+    procs, pipes = [], []
+    root = str(Path(__file__).resolve().parent)
+    for k in range(SERVING_PROCESSES):
+        parent_end, child_end = ctx.Pipe()
+        proc = ctx.Process(target=serving_client, daemon=True, args=(
+            root, child_end, leader_tcp.port, NUM_RECORDS, SEED + 41 + k, left, done))
+        proc.start()
+        procs.append(proc)
+        pipes.append(parent_end)
+    steps["setup_s"] = time.perf_counter() - t_phase
+
+    # The kernels of every bucket at this size against their plain
+    # versions on the card: the selections of b keys (K4 x 2,
+    # `leaf_blocks`) and K1 on them.
+    t0 = time.perf_counter()
+    server = leader.server
+    client = DenseDpfPirClient.create(NUM_RECORDS, encrypt_decrypt.encrypt)
+    staged_db = ldb.staged()
+    rows = ipk.rows_from_bitmajor(staged_db)[: NUM_RECORDS]
+    buckets_checked = []
+    for b in (1, 2, 4, 8, 16, 32, 64, 128):
+        idx = [int(i) for i in rng.integers(0, NUM_RECORDS, b)]
+        keys = client.create_plain_requests(idx)[0].plain_request.dpf_keys
+        staged = stage_keys(keys, server.walk_levels, device=dev)
+        sel = evaluate_selection_blocks_planes(
+            *staged, expand_levels=server.expand_levels,
+            num_blocks=ldb.num_selection_blocks, mode=server.expansion)
+        if not torch.equal(sel, walk_selections_plain(
+                staged, server.expand_levels, ldb.num_selection_blocks)):
+            raise AssertionError(f"serving: bucket {b}'s selections differ from the plain versions")
+        if not torch.equal(ipk.xor_inner_product_staged(staged_db, sel),
+                           xor_inner_product(rows, sel, chunk=8192)):
+            raise AssertionError(f"serving: bucket {b}'s inner products differ from the plain version")
+        buckets_checked.append(b)
+    del rows, staged_db, sel
+    steps["bucket_check_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for pipe in pipes:
+        if pipe.recv() != "ready":
+            raise AssertionError("serving: a client process did not start")
+    steps["clients_ready_s"] = time.perf_counter() - t0
+
+    def closed_loop(total, hot=(), hot_share=0.0, processes=SERVING_PROCESSES,
+                    threads=SERVING_THREADS):
+        """`total` requests from `processes` x `threads` clients; returns
+        [(index, answer, latency s, request digest, sent)]."""
+        left.value = total
+        done.value = 0
+        for pipe in pipes[:processes]:
+            pipe.send((threads, list(hot), hot_share))
+        out = []
+        for pipe in pipes[:processes]:
+            got = pipe.recv()
+            if isinstance(got, Exception):
+                raise got
+            out += got
+        if len(out) != total:
+            raise AssertionError(f"serving: {len(out)} answers of {total}")
+        return out
+
+    def batches():
+        """{party: {bucket: batches}} from the sessions' counters."""
+        out = {}
+        for name, session in (("leader", leader), ("helper", helper)):
+            counters = session.metrics.export()["counters"]
+            prefix = f"{name}.batcher.bucket_batches{{bucket="
+            out[name] = {int(k[len(prefix):-1]): v for k, v in counters.items()
+                         if k.startswith(prefix)}
+        return out
+
+    def plan_launches(server, counts):
+        """Launches of the batches formed, bucket by bucket, per its plan."""
+        want = {}
+        for b, n in counts.items():
+            per_two = tier_launches(server._plan_serving(b), server.expansion, -(-b // 32))
+            for name, c in per_two.items():
+                want[name] = want.get(name, 0) + n * c // 2
+        return want
+
+    t0 = time.perf_counter()
+    closed_loop(2 * SERVING_PROCESSES * SERVING_THREADS)  # warm-up
+    torch.cuda.synchronize()
+    steps["warmup_s"] = time.perf_counter() - t0
+    parties = (("leader", leader), ("helper", helper))
+    before = batches()
+    own_before = {p: s.launches for p, s in parties}
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = closed_loop(SERVING_REQUESTS)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got = dict(cuda_lib.LAUNCHES)
+    after = batches()
+    steps["closed_loop_s"] = wall_s
+    formed = {p: {b: n - before[p].get(b, 0) for b, n in after[p].items()
+                  if n - before[p].get(b, 0)} for p in after}
+    # Each party's own launches (counted on its batch worker) against the
+    # plans of its own batches, and all the process's against their sum.
+    want, per_party = {}, {}
+    for party, session in parties:
+        own = session.launches
+        per_party[party] = {name: own.get(name, 0) - own_before[party].get(name, 0)
+                            for name in got}
+        planned = plan_launches(session.server, formed[party])
+        if per_party[party] != {name: planned.get(name, 0) for name in got}:
+            raise AssertionError(f"serving: {party} launched {per_party[party]}, "
+                                 f"its batches' plans {planned}")
+        for name, n in planned.items():
+            want[name] = want.get(name, 0) + n
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"serving: launch counts {got}, expected {want}")
+    wrong = [i for i, answer, _, _, _ in out if answer != records[i]]
+    if wrong:
+        raise AssertionError(f"serving: {len(wrong)} answers differ from their records")
+    lat = sorted(x[2] * 1e3 for x in out)
+    nbatches = {p: sum(formed[p].values()) for p in formed}
+    bucket_keys = {p: sum(b * n for b, n in formed[p].items()) for p in formed}
+    # Each party answered every request with one key; the rest of its
+    # buckets was padding.
+    pad_waste = 1.0 - 2 * SERVING_REQUESTS / sum(bucket_keys.values())
+
+    # The device's idle share: the union of kernel intervals on any
+    # stream over the wall time of a traced closed loop.
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        closed_loop(SERVING_TRACED)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = merged_busy_ms(kernels) if kernels else None
+    steps["trace_s"] = time.perf_counter() - t0
+
+    # One client, sequential: the unbatched latency.
+    t0 = time.perf_counter()
+    seq = closed_loop(SERVING_SEQUENTIAL, processes=1, threads=1)
+    seq_s = time.perf_counter() - t0
+    steps["sequential_s"] = seq_s
+    if [i for i, answer, _, _, _ in seq if answer != records[i]]:
+        raise AssertionError("serving: a sequential answer differs from its record")
+    seq_ms = sorted(x[2] * 1e3 for x in seq)
+    for d in (x[3] for x in out + seq):
+        bound.pop(d)
+    emit({"phase": "serving", "records": NUM_RECORDS, "record_bytes": RECORD_BYTES,
+          "client_processes": SERVING_PROCESSES, "client_threads": SERVING_THREADS,
+          "requests": SERVING_REQUESTS, "queries_per_request": 1,
+          "max_batch_size": config.max_batch_size, "max_wait_ms": config.max_wait_ms,
+          "transport": "tcp loopback", "reconstructed": SERVING_REQUESTS,
+          "launches": got, "launches_by_party": per_party,
+          "buckets_checked_against_plain": buckets_checked,
+          "queries_per_sec": SERVING_REQUESTS / wall_s,
+          "p50_ms": lat[len(lat) // 2], "p99_ms": lat[int(len(lat) * 0.99)],
+          "batches": nbatches, "batches_by_bucket": formed,
+          "mean_keys_per_batch": {p: SERVING_REQUESTS / n for p, n in nbatches.items()},
+          "pad_waste_share": pad_waste,
+          "evaluate_ms_p50": {
+              p: s.metrics.export()["histograms"][f"{p}.batcher.evaluate_ms"]["p50"]
+              for p, s in (("leader", leader), ("helper", helper))},
+          "traced_requests": SERVING_TRACED, "traced_wall_ms": traced_ms,
+          "traced_device_events": len(kernels), "device_busy_ms": busy_ms,
+          "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / traced_ms,
+          "sequential_requests": SERVING_SEQUENTIAL,
+          "sequential_p50_ms": seq_ms[len(seq_ms) // 2],
+          "sequential_p99_ms": seq_ms[int(len(seq_ms) * 0.99)],
+          "sequential_queries_per_sec": SERVING_SEQUENTIAL / seq_s,
+          "helper_tcp_reconnects": leader._transport.reconnects, "steps_s": steps,
+          "phase_s": time.perf_counter() - t_phase, "device": smi_line})
+
+    # Rotation to generation 1 under the same traffic.
+    t_rot = time.perf_counter()
+    updated = [int(i) for i in rng.choice(NUM_RECORDS, SERVING_UPDATES, replace=False)]
+    gen1 = {i: rng.bytes(RECORD_BYTES) for i in updated}
+    builder = DenseDpfPirDatabase.Builder()
+    for i in updated:
+        builder.update(i, gen1[i])
+    leader_mgr, helper_mgr = SnapshotManager(leader), SnapshotManager(helper)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    gen1_dbs = builder.build_from(ldb), builder.build_from(hdb)
+    report, flipped = {}, [None]
+
+    def rotate():
+        while done.value < SERVING_ROTATION_REQUESTS // 4:
+            time.sleep(0.001)
+        report.update(RotationCoordinator(leader_mgr, helper_mgr).rotate(*gen1_dbs))
+        flipped[0] = time.perf_counter()
+
+    done.value = 0  # the rotation waits for this wave's answers
+    rotator = threading.Thread(target=rotate)
+    rotator.start()
+    # Half the wave queries updated rows.
+    wave = closed_loop(SERVING_ROTATION_REQUESTS, hot=updated, hot_share=0.5)
+    rotator.join()
+    if flipped[0] is None:
+        raise AssertionError("serving_rotation: the rotation did not finish")
+    del gen1_dbs
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated(dev)
+    counts = {0: 0, 1: 0}
+    after_flip = 0
+    for i, answer, _, digest, sent in wave:
+        generation = bound.pop(digest)
+        if generation not in counts:
+            raise AssertionError(f"serving_rotation: record {i} bound to {generation}")
+        counts[generation] += 1
+        value = gen1.get(i, records[i]) if generation == 1 else records[i]
+        if answer != value:
+            raise AssertionError(
+                f"serving_rotation: record {i} is not its generation {generation} value")
+        if sent > flipped[0]:
+            after_flip += 1
+            if generation != 1:
+                raise AssertionError(f"serving_rotation: record {i} sent after the "
+                                     f"flip answered from generation {generation}")
+    if not counts[0] or not after_flip:
+        raise AssertionError(f"serving_rotation: the wave did not span the rotation "
+                             f"({counts}, {after_flip} sent after it)")
+    stages = {"leader": leader_mgr.export(), "helper": helper_mgr.export()}
+    for party, state in stages.items():
+        stage = state["last_stage"]
+        if stage["mode"] != "delta" or stage["bytes_saved"] <= 0:
+            raise AssertionError(f"serving_rotation: {party} staged {stage}")
+        if [d["generation"] for d in state["drains"]] != [0]:
+            raise AssertionError(f"serving_rotation: {party} drains {state['drains']}")
+    if ldb.staged_bytes() or hdb.staged_bytes():
+        raise AssertionError("serving_rotation: generation 0 still holds its staging")
+    if abs(mem_after - mem_before) > 2 << 20:
+        raise AssertionError(
+            f"serving_rotation: memory_allocated {mem_after} after the drain, "
+            f"{mem_before} before the rotation")
+    for pipe in pipes:
+        pipe.send(None)
+    for proc in procs:
+        proc.join(timeout=30)
+        if proc.exitcode != 0:
+            raise AssertionError(f"serving: a client process exited {proc.exitcode}")
+    counters = leader.metrics.export()["counters"]
+    emit({"phase": "serving_rotation", "updated_rows": SERVING_UPDATES,
+          "requests": SERVING_ROTATION_REQUESTS, "answers_by_generation": counts,
+          "answers_sent_after_flip": after_flip,
+          "staleness_ms": report["staleness_ms"],
+          "bytes_staged": {p: s["last_stage"]["bytes_staged"] for p, s in stages.items()},
+          "bytes_saved": {p: s["last_stage"]["bytes_saved"] for p, s in stages.items()},
+          "bytes_full_image": stages["leader"]["last_stage"]["bytes_full_image"],
+          "mismatch_retries": counters.get("leader.snapshot_retries", 0),
+          "snapshot_mismatches": counters.get("leader.snapshot_mismatches", 0),
+          "bytes_freed": {p: s["drains"][0]["bytes_freed"] for p, s in stages.items()},
+          "flips": {p: s["history"] for p, s in stages.items()},
+          "memory_allocated_before": mem_before, "memory_allocated_after": mem_after,
+          "rotation_s": time.perf_counter() - t_rot,
+          "phase_s": time.perf_counter() - t_phase, "device": smi_line})
+    leader_tcp.stop()
+    helper_tcp.stop()
+    leader.close()
+    helper.close()
+
+
 def main() -> int:
     import torch
 
@@ -2520,6 +3013,10 @@ def main() -> int:
     launches["two_party"] = two_party_phase(
         rng, dev, db, records, servers[DEFAULT_EXPANSION].walk_levels, smi_line)
     del servers, db
+
+    # The serving runtime at the same configuration: batched sessions
+    # over framed TCP, then a rotation under traffic.
+    serving_phase(dev, records, smi_line)
 
     # 6. The DPF and DCF evaluation paths.
     dcf_launches = dcf_phase(rng, dev)

@@ -1,0 +1,20 @@
+"""Request observability of the serving runtime.
+
+Copied from the JAX package (`tracing`, `phases`, `events`,
+`propagation`, `critical_path`), and `device` rewritten on `torch.cuda`:
+
+* `tracing` -- per-request spans with trace ids and a flight recorder;
+* `phases` -- per-request latency attribution into a fixed taxonomy;
+* `events` -- the journal of operational transitions (breaker flips,
+  degraded mode, snapshot flips and drains);
+* `propagation` -- the Leader -> Helper trace-context envelope,
+  versions 1-3, byte-equal to the JAX package's so that either
+  package's Leader talks to either's Helper;
+* `critical_path` -- the Helper leg's skew estimate and its split into
+  network, queue and compute;
+* `device` -- first dispatches per bucket shape, device memory
+  watermarks, and the host <-> device transfer ledger.
+
+The layers run serving -> observability -> utils / robustness; nothing
+here imports `pir/`, `ops/` or `serving/`.
+"""

@@ -12,13 +12,20 @@ into `<source>.log` beside the objects (`ptxas_report`). A build runs in
 a private directory that is renamed into place when it is whole, so
 processes that build the same sources at once never share a file.
 
-`LAUNCHES` counts kernel launches per wrapper. Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that
-the main path went through the kernels (`chip_smoke.py`).
+`LAUNCHES` counts kernel launches per wrapper. Each wrapper calls
+`count(name)` where it launches its kernel and nowhere else, so a run can
+show that the main path went through the kernels (`chip_smoke.py`).
+`count` and `reset_launch_counts` take one lock: the serving runtime
+launches from several batch workers at once, and an unlocked `+=` on a
+dict entry can lose a count between its read and its write. A thread
+inside `counting_into(counts)` also adds its launches to `counts`: a
+serving session counts its own batch worker's launches so, apart from
+another session's in the same process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -65,11 +72,41 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_count_lock = threading.Lock()
+_scope = threading.local()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel `name` (a key of `LAUNCHES`), and to the
+    calling thread's `counting_into` dict if it has one."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        counts = getattr(_scope, "counts", None)
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Add this thread's launches to `counts` as well while open."""
+    outer = getattr(_scope, "counts", None)
+    _scope.counts = counts
+    try:
+        yield counts
+    finally:
+        _scope.counts = outer
+
+
+def read_counts(counts: dict) -> dict:
+    """A copy of a `counting_into` dict, taken under the count lock."""
+    with _count_lock:
+        return dict(counts)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

@@ -180,7 +180,7 @@ def expand_level(state, ctrl, cwp_kg, cwl_kg, cwr_kg):
             cwl_kg.data_ptr(), cwr_kg.data_ptr(), out_state.data_ptr(),
             out_ctrl.data_ptr(), g, kg, stream,
         )
-    cuda_lib.LAUNCHES["expand_level"] += 1
+    cuda_lib.count("expand_level")
     cuda_lib.check(err, "expand_level")
     return out_state, out_ctrl
 
@@ -201,7 +201,7 @@ def value_hash(state, ctrl, vc_kg):
             state.data_ptr(), ctrl.data_ptr(), vc_kg.data_ptr(),
             out.data_ptr(), g, kg, stream,
         )
-    cuda_lib.LAUNCHES["value_hash"] += 1
+    cuda_lib.count("value_hash")
     cuda_lib.check(err, "value_hash")
     return out
 
@@ -362,7 +362,7 @@ def walk_descend(state, ctrl, cwp, cwl, cwr, vc=None, *, value_hash=False,
             cwr.data_ptr(), _ptr(vc if value_hash else None), out.data_ptr(),
             out_ctrl.data_ptr(), g0, kg, nl, r, int(value_hash), stream,
         )
-    cuda_lib.LAUNCHES["walk_descend"] += 1
+    cuda_lib.count("walk_descend")
     cuda_lib.check(err, "walk_descend")
     return out, out_ctrl
 
@@ -380,7 +380,7 @@ def _launch_fused(name, tensors, sizes, width):
         err = getattr(lib, f"dpf_{name}")(
             *(t.data_ptr() for t in tensors), out.data_ptr(), out_ctrl.data_ptr(),
             *sizes, stream)
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count(name)
     cuda_lib.check(err, name)
     return out, out_ctrl
 
@@ -503,7 +503,7 @@ def path_walk(state, ctrl, sel, cwp, cwl, cwr, stops=None):
             cwl.data_ptr(), cwr.data_ptr(), (ctypes.c_int * len(stops))(*stops),
             len(stops), out.data_ptr(), out_ctrl.data_ptr(), g, kw, levels, stream,
         )
-    cuda_lib.LAUNCHES["path_level"] += 1
+    cuda_lib.count("path_level")
     cuda_lib.check(err, "path_level")
     return out, out_ctrl
 
@@ -568,6 +568,6 @@ def leaf_blocks(values, block_node, key_groups: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dpf_leaf_blocks(values.data_ptr(), block_node.data_ptr(),
                                   out.data_ptr(), g, key_groups, num_blocks, stream)
-    cuda_lib.LAUNCHES["leaf_blocks"] += 1
+    cuda_lib.count("leaf_blocks")
     cuda_lib.check(err, "leaf_blocks")
     return out

@@ -182,7 +182,7 @@ def _launch_k1(db_perm, packed, out, nq: int, accumulate: bool) -> None:
             nq, num_groups, num_words, db_perm.stride(0), int(accumulate),
             sms, stream,
         )
-    cuda_lib.LAUNCHES["xor_inner_product"] += 1
+    cuda_lib.count("xor_inner_product")
     cuda_lib.check(err, "xor_inner_product")
 
 
@@ -267,7 +267,7 @@ def xor_counts(db_perm: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
             packed.data_ptr(), db_perm.data_ptr(), counts.data_ptr(),
             nq, num_groups, num_words, sms, stream,
         )
-    cuda_lib.LAUNCHES["xor_counts"] += 1
+    cuda_lib.count("xor_counts")
     cuda_lib.check(err, "xor_counts")
     return counts
 
@@ -316,7 +316,7 @@ def repeat_tiles(x: torch.Tensor, factor: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dpf_repeat_tiles(x.data_ptr(), out.data_ptr(), rows, n, factor,
                                    stream)
-    cuda_lib.LAUNCHES["repeat_tiles"] += 1
+    cuda_lib.count("repeat_tiles")
     cuda_lib.check(err, "repeat_tiles")
     return out
 

@@ -14,8 +14,12 @@ The port of the JAX package's `pir/server.py` on one device.
 
 Transport and encryption are callbacks, so any RPC stack and hybrid
 scheme plug in (`crypto/hybrid.py`, `testing/encrypt_decrypt.py`).
-Every role serves its plain share through `handle_plain_request`, the
-same device path.
+Every role serves its plain share through `_dispatch_plain`: by default
+`handle_plain_request`, the same device path; `set_plain_handler`
+routes it elsewhere (the serving runtime's batcher, `serving/`).
+`swap_database` replaces the served database with a new generation of
+the same geometry, and `prestage_database` stages one beforehand
+(`serving/snapshots.py`).
 
 `DenseDpfPirServer` binds the roles to the dense database: a request's
 DPF keys are staged with the shared all-zeros prefix walked on the host
@@ -51,12 +55,12 @@ from typing import Callable, List, Optional
 from .. import native
 from ..device import resolve_device
 from ..dpf import DistributedPointFunction, DpfParameters
-from ..ops.words import to_numpy
+from ..observability.device import default_telemetry
 from ..prng import Aes128CtrSeededPrng, mask_all, xor_bytes
 from ..value_types import XorType
 from . import messages
 from .client import ENCRYPTION_CONTEXT_INFO
-from .database import DenseDpfPirDatabase, words_to_record_bytes
+from .database import DenseDpfPirDatabase, read_back, words_to_record_bytes
 from .dense_eval import chunked_pir_inner_products, stage_keys
 from .dense_eval_planes import (
     DEFAULT_EXPANSION,
@@ -101,6 +105,7 @@ class DpfPirServer:
         self._sender: Optional[ForwardHelperRequestFn] = None
         self._decrypter: Optional[DecryptHelperRequestFn] = None
         self._encryption_context_info = ENCRYPTION_CONTEXT_INFO
+        self._plain_handler: Optional[Callable] = None
 
     def make_leader(self, sender: ForwardHelperRequestFn) -> None:
         if sender is None:
@@ -123,11 +128,25 @@ class DpfPirServer:
     def role(self) -> str:
         return self._role
 
+    def set_plain_handler(self, handler: Optional[Callable]) -> None:
+        """Route every role's plain evaluation (the plain role's
+        requests, the Leader's own share inside `while_waiting`, the
+        Helper's decrypted request) through `handler(request) ->
+        PirResponse`; None restores `handle_plain_request`. The handler
+        may itself call `handle_plain_request`, the evaluation."""
+        self._plain_handler = handler
+
+    def _dispatch_plain(self, request):
+        handler = self._plain_handler
+        if handler is not None:
+            return handler(request)
+        return self.handle_plain_request(request)
+
     def handle_request(
         self, request: "messages.PirRequest"
     ) -> "messages.PirResponse":
         if self._role == "plain":
-            return self.handle_plain_request(request)
+            return self._dispatch_plain(request)
         if self._role == "leader":
             return self._handle_leader_request(request)
         return self._handle_helper_request(request)
@@ -167,7 +186,7 @@ class DpfPirServer:
         state = {}
 
         def while_waiting():
-            state["response"] = self.handle_plain_request(plain_request)
+            state["response"] = self._dispatch_plain(plain_request)
 
         helper_response = self._sender(helper_request, while_waiting)
         if "response" not in state:
@@ -198,7 +217,7 @@ class DpfPirServer:
             request.encrypted_helper_request.encrypted_request,
             self._encryption_context_info,
         ))
-        response = self.handle_plain_request(
+        response = self._dispatch_plain(
             messages.PirRequest(plain_request=inner.plain_request))
         return messages.PirResponse(dpf_pir_response=messages.DpfPirResponse(
             masked_response=mask_all(response.dpf_pir_response.masked_response,
@@ -271,6 +290,10 @@ class DenseDpfPirServer(DpfPirServer):
         return server
 
     @property
+    def device(self):
+        return self._device
+
+    @property
     def dpf(self) -> DistributedPointFunction:
         return self._dpf
 
@@ -293,6 +316,33 @@ class DenseDpfPirServer(DpfPirServer):
     def _parse_helper_request(self, data: bytes) -> "messages.HelperRequest":
         return messages.parse_helper_request(self._dpf, data)
 
+    def swap_database(self, database: DenseDpfPirDatabase) -> DenseDpfPirDatabase:
+        """Serve `database`, a new generation of the same geometry, from
+        the next batch on; returns the old one (still staged: the caller
+        frees it with `release_stagings` once its batches have drained).
+        Safe only at a batch boundary (`serving/snapshots.py`): each
+        batch reads the database once, the swap is one assignment."""
+        if database is None:
+            raise ValueError("database cannot be None")
+        old = self._database
+        for what, new_v, old_v in (
+            ("size", database.size, old.size),
+            ("num_selection_blocks", database.num_selection_blocks,
+             old.num_selection_blocks),
+            ("max_value_size", database.max_value_size, old.max_value_size),
+            ("device", database.device, old.device),
+        ):
+            if new_v != old_v:
+                raise ValueError(
+                    f"swap_database {what} mismatch: {new_v} != {old_v}")
+        self._database = database
+        return old
+
+    def prestage_database(self, database: DenseDpfPirDatabase) -> int:
+        """Stage `database` the way this server serves it, before a flip
+        (`DenseDpfPirDatabase.prestage`); returns the bytes moved."""
+        return database.prestage()
+
     def handle_plain_request(
         self, request: "messages.PirRequest"
     ) -> "messages.PirResponse":
@@ -313,7 +363,7 @@ class DenseDpfPirServer(DpfPirServer):
         plan = self._plan_serving(len(keys))
         return messages.PirResponse(
             dpf_pir_response=messages.DpfPirResponse(
-                masked_response=self._execute_plan(plan, keys)
+                masked_response=self._execute_plan(plan, keys, self._database)
             )
         )
 
@@ -335,50 +385,64 @@ class DenseDpfPirServer(DpfPirServer):
             )
         return plan
 
-    def _execute_plan(self, plan: ServingPlan, keys) -> List[bytes]:
-        if plan.mode == "streaming":
-            return self._inner_products_streaming(plan, keys)
-        if plan.mode == "chunked":
-            return self._inner_products_chunked(plan, keys)
+    def _stage_keys(self, keys):
+        """The keys staged on the device (`dense_eval.stage_keys`), their
+        one host-to-device copy counted in the transfer ledger."""
         staged = stage_keys(keys, self._walk_levels, device=self._device)
+        if self._device.type == "cuda":
+            default_telemetry().transfers.record_h2d(
+                sum(t.numel() * 4 for t in staged), "key_staging")
+        return staged
+
+    def _execute_plan(self, plan: ServingPlan, keys,
+                      database: DenseDpfPirDatabase) -> List[bytes]:
+        """Serve `keys` on `plan` against `database` (read once by the
+        caller, so a swap between two batches never splits one)."""
+        if plan.mode == "streaming":
+            return self._inner_products_streaming(plan, keys, database)
+        if plan.mode == "chunked":
+            return self._inner_products_chunked(plan, keys, database)
+        staged = self._stage_keys(keys)
         selections = evaluate_selection_blocks_planes(
             *staged,
             expand_levels=self._expand_levels,
             num_blocks=self._num_blocks,
             mode=self._expansion,
         )
-        return self._database.inner_product_with(selections)
+        return database.inner_product_with(selections)
 
-    def _inner_products_streaming(self, plan: ServingPlan, keys) -> List[bytes]:
+    def _inner_products_streaming(self, plan: ServingPlan, keys,
+                                  database: DenseDpfPirDatabase) -> List[bytes]:
         """The streaming tier: tail expansion and K1's accumulate entry per
         chunk, no materialized selection matrix."""
-        staged = stage_keys(keys, self._walk_levels, device=self._device)
+        staged = self._stage_keys(keys)
         out = streaming_pir_inner_products(
             *staged,
-            self._database.streaming_chunks(plan.cut_levels),
+            database.streaming_chunks(plan.cut_levels),
             cut_levels=plan.cut_levels,
             chunk_levels=plan.chunk_levels,
             mode=self._expansion,
         )
         return words_to_record_bytes(
-            to_numpy(out), len(keys), self._database.max_value_size)
+            read_back(out), len(keys), database.max_value_size)
 
-    def _chunked_database(self):
+    def _chunked_database(self, database: DenseDpfPirDatabase):
         """(padded block count, staging) of the chunked tier: the block
         count padded to a multiple of 2^min(expand_levels, 10) blocks, so
         that the staging does not depend on the batch size
         (`DenseDpfPirDatabase.chunked_staging` builds it once)."""
         granule = 1 << min(self._expand_levels, CHUNK_GRANULE_LEVELS)
         padded_blocks = -(-self._num_blocks // granule) * granule
-        return padded_blocks, self._database.chunked_staging(granule)
+        return padded_blocks, database.chunked_staging(granule)
 
-    def _inner_products_chunked(self, plan: ServingPlan, keys) -> List[bytes]:
+    def _inner_products_chunked(self, plan: ServingPlan, keys,
+                                database: DenseDpfPirDatabase) -> List[bytes]:
         """The chunked tier: one chunk's selections live at a time. The
         chunk count follows from the granule-padded block count (the
         plan's num_chunks is its lower bound)."""
-        padded_blocks, db = self._chunked_database()
+        padded_blocks, db = self._chunked_database(database)
         cel = plan.chunk_levels
-        staged = stage_keys(keys, self._walk_levels, device=self._device)
+        staged = self._stage_keys(keys)
         out = chunked_pir_inner_products(
             *staged,
             db,
@@ -388,4 +452,4 @@ class DenseDpfPirServer(DpfPirServer):
             mode=self._expansion,
         )
         return words_to_record_bytes(
-            to_numpy(out), len(keys), self._database.max_value_size)
+            read_back(out), len(keys), database.max_value_size)

@@ -1,0 +1,35 @@
+"""Failure machinery of the serving runtime, copied from the JAX package.
+
+* `failpoints` -- a seeded registry of named fault sites in the
+  transports, the batcher worker, the Leader's Helper leg and the
+  snapshot rotation. Armed from code only; disarmed it costs one
+  attribute read a site.
+* `breaker` -- the closed / open / half-open circuit breaker the Leader
+  puts on its Helper leg.
+
+Stdlib only, at the bottom of the layers: every layer may call it.
+"""
+
+from .breaker import CircuitBreaker
+from .failpoints import (
+    FailpointError,
+    FailpointRegistry,
+    FailpointSpec,
+    SimulatedResourceExhausted,
+    default_failpoints,
+    fire,
+    mutate,
+    set_default_failpoints,
+)
+
+__all__ = [
+    "CircuitBreaker",
+    "FailpointError",
+    "FailpointRegistry",
+    "FailpointSpec",
+    "SimulatedResourceExhausted",
+    "default_failpoints",
+    "fire",
+    "mutate",
+    "set_default_failpoints",
+]

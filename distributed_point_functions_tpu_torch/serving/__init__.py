@@ -1,0 +1,64 @@
+"""The serving runtime: batched Leader / Helper / Plain sessions.
+
+* `batcher.DynamicBatcher` coalesces concurrent requests into
+  power-of-two key buckets, one device step a bucket, on its own CUDA
+  stream;
+* `service` -- `ServingConfig`, `PlainSession`, `HelperSession`,
+  `LeaderSession`: deadlines, the Helper leg's timeout, retries,
+  backoff and retry budget, the circuit breaker and degraded mode, the
+  enveloped wire with its version downgrade;
+* `snapshots` -- `SnapshotManager` and `RotationCoordinator`: a new
+  database generation staged beside the serving one (a delta when it
+  can be), flipped at a batch boundary, the old one freed after it
+  drains;
+* `transport` -- length-prefixed frames over TCP (`FramedTcpServer`,
+  `TcpTransport`, and `TcpTransportPool` for concurrent Helper legs)
+  and an in-process transport;
+* `metrics` -- the sessions' counters, gauges and histograms.
+
+Ported from the JAX package's `serving/`; see each module for what it
+leaves out.
+"""
+
+from .batcher import DeadlineExceeded, DynamicBatcher, Overloaded, bucket_size
+from .metrics import MetricsRegistry
+from .service import (
+    HelperSession,
+    HelperUnavailable,
+    LeaderSession,
+    PlainSession,
+    ServingConfig,
+)
+from .snapshots import RotationCoordinator, SnapshotManager, SnapshotMismatch
+from .transport import (
+    FramedTcpServer,
+    InProcessTransport,
+    TcpTransport,
+    TcpTransportPool,
+    Transport,
+    TransportError,
+    TransportTimeout,
+)
+
+__all__ = [
+    "DeadlineExceeded",
+    "DynamicBatcher",
+    "FramedTcpServer",
+    "HelperSession",
+    "HelperUnavailable",
+    "InProcessTransport",
+    "LeaderSession",
+    "MetricsRegistry",
+    "Overloaded",
+    "PlainSession",
+    "RotationCoordinator",
+    "ServingConfig",
+    "SnapshotManager",
+    "SnapshotMismatch",
+    "TcpTransport",
+    "TcpTransportPool",
+    "Transport",
+    "TransportError",
+    "TransportTimeout",
+    "bucket_size",
+]

@@ -8,13 +8,17 @@
   counters at 0; a tensor on any other device raises.
 * No `try` on the port's serving path or in its DPF/DCF evaluation gives
   way to a plain version; the sparse database's cuckoo build has no `try`
-  and reads no environment variable (SHA256 runs the native build).
+  and reads no environment variable (SHA256 runs the native build); the
+  serving runtime (`serving/`, `observability/`, `robustness/`, `utils/`)
+  reads none either, and its sessions default to the card.
+* The launch counters lose no count when threads launch at once.
 """
 
 import ast
 import pkgutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +47,16 @@ from distributed_point_functions_tpu_torch.value_types import IntType
 
 PORT_DIR = Path(port.__file__).resolve().parent
 REPO = PORT_DIR.parent
+# The serving runtime's modules (dotted, under the port).
+SERVING_MODULES = (
+    "serving", "serving.batcher", "serving.metrics", "serving.service",
+    "serving.snapshots", "serving.transport", "observability",
+    "observability.critical_path", "observability.device",
+    "observability.events", "observability.phases",
+    "observability.propagation", "observability.tracing", "robustness",
+    "robustness.breaker", "robustness.failpoints", "utils",
+    "utils.profiling",
+)
 
 
 def _port_modules():
@@ -73,7 +87,8 @@ def test_import_loads_no_jax():
             "distributed_point_functions_tpu_torch.testing.pir_generators",
             "distributed_point_functions_tpu_torch.testing.pir_selection_bits",
             "distributed_point_functions_tpu_torch.testing.request_generator",
-            } <= set(_port_modules())
+            } | {f"distributed_point_functions_tpu_torch.{m}" for m in SERVING_MODULES
+                 } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -242,10 +257,74 @@ def test_serving_path_has_no_try(module):
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
 
+def test_launch_counts_lose_nothing_across_threads():
+    cuda_lib.reset_launch_counts()
+    barrier = threading.Barrier(8)
+
+    def launch():
+        barrier.wait()
+        for _ in range(10_000):
+            cuda_lib.count("leaf_blocks")
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert cuda_lib.LAUNCHES["leaf_blocks"] == 80_000
+    cuda_lib.reset_launch_counts()
+    assert not any(cuda_lib.LAUNCHES.values())
+
+
+def test_launch_counts_per_thread_scope():
+    """Each thread's `counting_into` dict gets its own launches only (a
+    serving session's batch worker), and the global count gets them all."""
+    cuda_lib.reset_launch_counts()
+    barrier = threading.Barrier(8)
+    scopes = [{} for _ in range(8)]
+
+    def launch(t):
+        barrier.wait()
+        with cuda_lib.counting_into(scopes[t]):
+            for _ in range(1_000 * (t + 1)):
+                cuda_lib.count("walk_descend")
+        cuda_lib.count("walk_descend")  # outside the scope
+
+    threads = [threading.Thread(target=launch, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert [cuda_lib.read_counts(s) for s in scopes] == [
+        {"walk_descend": 1_000 * (t + 1)} for t in range(8)]
+    assert cuda_lib.LAUNCHES["walk_descend"] == 36_000 + 8
+    cuda_lib.reset_launch_counts()
+
+
+def test_sessions_default_device_does_not_fall_back(no_cuda):
+    from distributed_point_functions_tpu_torch.serving import (
+        HelperSession,
+        InProcessTransport,
+        LeaderSession,
+        PlainSession,
+    )
+
+    db = DenseDpfPirDatabase([b"x"] * 10, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PlainSession(db)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HelperSession(db, encrypt_decrypt.decrypt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeaderSession(db, InProcessTransport(lambda b: b))
+
+
 @pytest.mark.parametrize(
     "module", ["native.py", "dpf.py", "pir/dense_eval.py", "pir/server.py",
                "pir/client.py", "prng.py", "serialization.py", "pir/cuckoo_database.py",
-               "pir/sparse_server.py", "pir/sparse_client.py", "pir/database.py"])
+               "pir/sparse_server.py", "pir/sparse_client.py", "pir/database.py"]
+    # The serving runtime takes its settings from `ServingConfig` and its
+    # failpoints from code.
+    + [m.replace(".", "/") + ".py" for m in SERVING_MODULES if "." in m])
 def test_host_path_reads_no_environment(module):
     """No environment variable selects the host library's numpy twins or
     anything else on the host side of the main path."""
