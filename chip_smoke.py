@@ -259,6 +259,34 @@ non-zero before printing a result. Phases, one JSON line each:
      the hybrid-encrypted Helper leg and the one-time pad: every value
      resolves and every absent key is `KeyNotFound`; round-trip ms by
      step and q/s.
+   Then private heavy hitters (its own generator), each party's launches
+   counted on its own aggregator's stream from just before each run:
+   - `hh_small`: the JAX test's 8-bit config and values, and a 24-bit
+     config of 512 clients (`skewed_values`): every round's shares and
+     each party's cut states on the card equal `device="cpu"` servers',
+     unchunked and under a budget of two prefixes a chunk, each level
+     also from the root; each party's K8 and K3 launches equal its level
+     plans; the result equals `plaintext_heavy_hitters`;
+   - `heavy_hitters`: 65,536 reports of the JAX heavy-hitters bench's
+     population (`skewed_values(65536, 64, seed=13)`, copied) over 64-bit
+     values, 4-bit rounds, threshold 32, 32-bit counts, made by the
+     port's client in 8 spawned worker processes (keygen s, and each
+     worker's report and packing ms a pair), each party's keys staged
+     once (staging s); the Helper behind a `FramedTcpServer` on loopback,
+     the Leader over `TcpTransport`, each party on its own CUDA stream at
+     the card's default frontier budget. Gates: the four hot values with
+     their counts and nothing else, the frontier widths 16, 256, 4,096,
+     then 64 x 13, each party's K8 and K3 launches equal to its level
+     plans, and the widest level of one party alone within its modeled
+     chunk peak plus the level's cut states (counted exactly) and 2 MiB.
+     The line gives sweep s, each round's ms, lanes/s, the device's idle
+     share (the union of kernel intervals of a profiled session), each
+     round's host and device ms with the parties one after the other,
+     the modeled and measured peak bytes, and the cost ledger's cells.
+   Before them, two `kernel` lines at the widest level's chunk shape:
+   K8 `path_level` (`mode` `hh_chunk`: 4 levels per seed over the
+   chunk's word columns, KW = 2,048) and K3 `value_hash` (`path`
+   `hh_chunk`, the chunk's lanes).
 8. `{"kernels": [...]}`: every ported kernel with its launches on the
    main path (the run of the mode or path that launches it; K1 from the
    default mode's; K8 from the 1,024-key DCF batch, `ms`/`bound_ms` of its
@@ -2327,6 +2355,349 @@ def serving_phase(dev, records, smi_line: str) -> None:
     helper.close()
 
 
+# Private heavy hitters (the JAX package's heavy-hitters bench population,
+# `benchmarks/heavy_hitters_bench.py:_skewed_values`, at 65,536 clients
+# over 64-bit values): 4-bit rounds, 32-bit counts, threshold 32.
+HH_CLIENTS = 1 << 16
+HH_DOMAIN_BITS = 64
+HH_THRESHOLD = 32
+HH_POPULATION_SEED = 13
+HH_WIDTHS = [16, 256, 4096] + [64] * 13
+HH_WIDEST_ROUND = 2
+HH_WORKERS = 8
+HH_JOB = 1024  # values a worker's job
+HH_ROUND_TIMEOUT_MS = 600_000.0
+# `hh_small`: the JAX test's 8-bit config and values, and a 24-bit one.
+HH_SMALL_VALUES = [3, 3, 3, 77, 77, 9, 9, 200]
+HH_SMALL_CLIENTS = 512
+HH_SMALL_BITS = 24
+HH_SMALL_THRESHOLD = 8
+
+
+def skewed_values(num_clients: int, domain_bits: int, seed: int) -> list:
+    """The JAX package's `benchmarks/heavy_hitters_bench.py:_skewed_values`
+    (copied): four hot values holding N/4, N/6, N/8 and N/10 of the
+    reports, and a uniform tail."""
+    import random
+
+    rng = random.Random(seed)
+    hot = [rng.randrange(1 << domain_bits) for _ in range(4)]
+    weights = [num_clients // 4, num_clients // 6, num_clients // 8,
+               num_clients // 10]
+    values = []
+    for v, w in zip(hot, weights):
+        values.extend([v] * max(1, w))
+    while len(values) < num_clients:
+        values.append(rng.randrange(1 << domain_bits))
+    rng.shuffle(values)
+    return values[:num_clients]
+
+
+def hh_reports(root: str, fields: dict, values: list):
+    """A worker of the heavy-hitters phase (started with `spawn`; it never
+    touches the card): the port's client makes one report per value, and
+    each party's keys go back packed as host arrays, with the seconds of
+    the reports and of the packing."""
+    sys.path.insert(0, root)
+    from distributed_point_functions_tpu_torch import heavy_hitters as hh
+
+    config = hh.HeavyHittersConfig(**fields)
+    client = hh.HeavyHittersClient(config, device="cpu")
+    t0 = time.perf_counter()
+    pairs = [client.generate_report(v) for v in values]
+    t1 = time.perf_counter()
+    dpf = config.make_dpf("cpu")
+    packed = tuple(dpf.pack_keys([p[party] for p in pairs]) for party in (0, 1))
+    return packed, t1 - t0, time.perf_counter() - t1
+
+
+def hh_want_launches(plans) -> dict:
+    """A server's K8 and K3 launches by its level plans: a walk and a value
+    hash a chunk (no walk where a level walks no tree level)."""
+    return {"path_level": sum(p.num_chunks for p in plans if p.walk_levels),
+            "value_hash": sum(p.num_chunks for p in plans)}
+
+
+def hh_sweep(servers, config, on_round=None):
+    """`run_protocol` written out: the rounds of one sweep, the two
+    servers one after the other; `on_round(r, frontier, shares)` sees each
+    round's frontier and both parties' shares before the pruning."""
+    from distributed_point_functions_tpu_torch import heavy_hitters as hh
+
+    sweep = hh.FrontierSweep(config)
+    while not sweep.done:
+        r, frontier = sweep.round_index, sweep.frontier
+        shares = [s.evaluate_round(r, frontier) for s in servers]
+        if on_round is not None:
+            on_round(r, frontier, shares)
+        sweep.observe_counts(hh.reconstruct_counts(*shares, config.count_bits))
+    return sweep
+
+
+def hh_small_phase(rng, dev) -> None:
+    """The heavy-hitters sweep on the card against `device="cpu"`: the JAX
+    test's 8-bit config and values, and a 24-bit config of 512 clients.
+    Every round's shares and each party's cut states on the card equal the
+    CPU's, resumed and from the root (`evaluate_prefixes_batch` with no cut
+    state), unchunked and under a budget of two prefixes a chunk; each
+    party's K8 and K3 launches equal its level plans; the result equals
+    `plaintext_heavy_hitters`."""
+    import torch
+
+    from distributed_point_functions_tpu_torch import heavy_hitters as hh
+    from distributed_point_functions_tpu_torch.capacity.model import padded_keys
+
+    cases = [("jax_test", hh.HeavyHittersConfig(domain_bits=8, level_bits=4, threshold=2),
+              HH_SMALL_VALUES)]
+    cases.append(("24_bit", hh.HeavyHittersConfig(
+        domain_bits=HH_SMALL_BITS, level_bits=4, threshold=HH_SMALL_THRESHOLD),
+        skewed_values(HH_SMALL_CLIENTS, HH_SMALL_BITS, int(rng.integers(1 << 30)))))
+    for name, config, values in cases:
+        t_case = time.perf_counter()
+        client = hh.HeavyHittersClient(config, device="cpu")
+        pairs = [client.generate_report(v) for v in values]
+        keys = [[p[party] for p in pairs] for party in (0, 1)]
+        two = padded_keys(len(values)) * 2 * hh.lane_bytes(1, 1)
+        cpu = [hh.HeavyHittersServer(config, k, device="cpu") for k in keys]
+        card_dpf, cpu_dpf = config.make_dpf(dev), config.make_dpf("cpu")
+        card = {budget: [hh.HeavyHittersServer(config, k, device=dev, budget_bytes=budget)
+                         for k in keys] for budget in (None, two)}
+        checked = {"rounds": 0, "cut_states": 0, "from_root": 0}
+
+        def compare(r, frontier, want):
+            # `want`: the CPU servers' shares, which drive the sweep.
+            for budget, servers in card.items():
+                got = [s.evaluate_round(r, frontier) for s in servers]
+                for g, w in zip(got, want):
+                    if not np.array_equal(g, w):
+                        raise AssertionError(f"hh_small {name}: round {r} shares differ "
+                                             f"(budget {budget})")
+                for s, c in zip(servers, cpu):
+                    a, b = s.aggregator.cuts, c.aggregator.cuts
+                    if not (torch.equal(a.state.cpu(), b.state)
+                            and torch.equal(a.ctrl.cpu(), b.ctrl)):
+                        raise AssertionError(f"hh_small {name}: round {r} cut state differs")
+                    checked["cut_states"] += 1
+            for s, c in zip(card[None], cpu):
+                frontier_list = [int(p) for p in frontier]
+                root, _ = card_dpf.evaluate_prefixes_batch(
+                    s.aggregator.staged, r, frontier_list)
+                root_cpu, _ = cpu_dpf.evaluate_prefixes_batch(
+                    c.aggregator.staged, r, frontier_list)
+                if not torch.equal(root.cpu(), root_cpu):
+                    raise AssertionError(f"hh_small {name}: round {r} from the root differs")
+                checked["from_root"] += 1
+            checked["rounds"] += 1
+
+        sweep = hh_sweep(cpu, config, compare)
+        torch.cuda.synchronize()
+        want = hh.plaintext_heavy_hitters(values, config)
+        if dict(sweep.result) != want:
+            raise AssertionError(f"hh_small {name}: {dict(sweep.result)} != {want}")
+        launches = {}
+        for budget, servers in card.items():
+            for party, s in enumerate(servers):
+                plan_want = hh_want_launches(s.aggregator.plans)
+                if s.launches != plan_want:
+                    raise AssertionError(f"hh_small {name}: party {party} launches "
+                                         f"{s.launches} != plans {plan_want}")
+            launches["default" if budget is None else "two_prefixes"] = servers[0].launches
+        emit({"phase": "hh_small", "config": name, "clients": len(values),
+              "domain_bits": config.domain_bits, "threshold": config.threshold,
+              "heavy_hitters": {str(k): v for k, v in sorted(want.items())},
+              "widths": [st.frontier_width for st in sweep.rounds], **checked,
+              "launches_party0": launches, "phase_s": time.perf_counter() - t_case})
+
+
+def hh_level_busy(prof, windows) -> list:
+    """Device-busy ms inside each host window (start, end) in microseconds
+    of the profiler's clock: the union of kernel intervals there."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = []
+    for lo, hi in windows:
+        busy, end = 0.0, lo
+        for a, b in spans:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                busy += b - a
+                end = b
+        out.append(busy / 1e3)
+    return out
+
+
+def heavy_hitters_phase(dev, smi_line: str) -> None:
+    """Private heavy hitters at full size on the card: 65,536 reports of
+    `skewed_values(65536, 64, seed=13)`, made by the port's client in
+    `HH_WORKERS` spawned processes (keygen s), each party's keys staged once
+    (staging s), then the Leader/Helper session: the Helper behind a
+    `FramedTcpServer` on loopback, the Leader over `TcpTransport`, each
+    party's aggregator on its own CUDA stream at the card's default
+    frontier budget. Gates: the result is the oracle's four hot values and
+    counts, the frontier widths `HH_WIDTHS`, each party's own K8 and K3
+    launches (counted from just before the sweep) equal to its level plans.
+    Then a profiled session sweep (the device's idle share), and the sweep
+    with the parties one after the other (`hh_sweep`), profiled, each
+    round's host and device ms, and the widest round of party 0 alone
+    between `reset_peak_memory_stats` and `max_memory_allocated`: its peak
+    over the bytes before it must be within the modeled chunk peak, the
+    level's cut states (counted exactly) and 2 MiB of the caching
+    allocator's granularity. Prints the `heavy_hitters` line."""
+    import multiprocessing
+
+    import torch
+
+    from distributed_point_functions_tpu_torch import heavy_hitters as hh
+    from distributed_point_functions_tpu_torch.dpf import HostKeyBatch
+    from distributed_point_functions_tpu_torch.observability import costmodel
+    from distributed_point_functions_tpu_torch.serving import FramedTcpServer
+    from distributed_point_functions_tpu_torch.serving.metrics import MetricsRegistry
+    from distributed_point_functions_tpu_torch.serving.transport import TcpTransport
+
+    t_phase = time.perf_counter()
+    fields = {"domain_bits": HH_DOMAIN_BITS, "level_bits": 4,
+              "threshold": HH_THRESHOLD, "count_bits": 32}
+    config = hh.HeavyHittersConfig(**fields)
+    values = skewed_values(HH_CLIENTS, HH_DOMAIN_BITS, HH_POPULATION_SEED)
+    want = hh.plaintext_heavy_hitters(values, config)
+    root = str(Path(__file__).resolve().parent)
+
+    t0 = time.perf_counter()
+    jobs = [(root, fields, values[i:i + HH_JOB]) for i in range(0, len(values), HH_JOB)]
+    with multiprocessing.get_context("spawn").Pool(HH_WORKERS) as pool:
+        parts = pool.starmap(hh_reports, jobs)
+        pool.close()
+        pool.join()
+    keygen_s = time.perf_counter() - t0
+    report_s = sum(p[1] for p in parts)
+    pack_s = sum(p[2] for p in parts)
+    host = [HostKeyBatch.concat([p[0][party] for p in parts]) for party in (0, 1)]
+    del parts
+    staging_s, servers = [], []
+    for party in (0, 1):
+        t0 = time.perf_counter()
+        servers.append(hh.HeavyHittersServer(config, host[party], device=dev))
+        torch.cuda.synchronize()
+        staging_s.append(time.perf_counter() - t0)
+    del host
+    costmodel.set_default_cost_ledger(costmodel.CostLedger())
+
+    def session_sweep():
+        for s in servers:
+            s.reset()
+        helper = hh.HeavyHittersHelper(servers[1])
+        with FramedTcpServer(helper.handle_wire, host="127.0.0.1", name="hh-helper") as srv, \
+                TcpTransport("127.0.0.1", srv.port) as transport:
+            leader = hh.HeavyHittersLeader(servers[0], transport, metrics=MetricsRegistry(),
+                                           round_timeout_ms=HH_ROUND_TIMEOUT_MS)
+            return leader.run()
+
+    before = [s.launches for s in servers]
+    t0 = time.perf_counter()
+    result = session_sweep()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    if result.as_dict() != want or len(want) != 4:
+        raise AssertionError(f"heavy_hitters: {result.as_dict()} != the oracle's {want}")
+    widths = [st.frontier_width for st in result.rounds]
+    if widths != HH_WIDTHS:
+        raise AssertionError(f"heavy_hitters: frontier widths {widths} != {HH_WIDTHS}")
+    launches = []
+    for party, s in enumerate(servers):
+        got = {k: v - before[party].get(k, 0) for k, v in s.launches.items()}
+        plan_want = hh_want_launches(s.aggregator.plans)
+        if got != plan_want:
+            raise AssertionError(f"heavy_hitters: party {party} launches {got} != "
+                                 f"its level plans' {plan_want}")
+        launches.append(got)
+    lanes = HH_CLIENTS * sum(widths)
+    plans = [[p.num_chunks for p in s.aggregator.plans] for s in servers]
+    ledger = costmodel.default_cost_ledger().export()
+
+    # The session profiled: the device's idle share is 1 - the union of
+    # kernel intervals (the parties' two streams overlap) over the wall.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("hh_session"):
+            t0 = time.perf_counter()
+            session_sweep()
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+    window = next((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.name == "hh_session")
+    session_busy_ms = hh_level_busy(prof, [window])[0]
+    del prof
+
+    # The parties one after the other, profiled: each round's host ms and
+    # device-busy ms (kernel intervals inside the round's window), and the
+    # widest round of party 0 alone: its device memory.
+    for s in servers:
+        s.reset()
+    sweep = hh.FrontierSweep(config)
+    agg = servers[0].aggregator
+    round_host_ms, names, peak = [], [], None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        while not sweep.done:
+            r, frontier = sweep.round_index, sweep.frontier
+            names.append(f"hh_round_{r}")
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(names[-1]):
+                if r == HH_WIDEST_ROUND:
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                shares = [servers[0].evaluate_round(r, frontier)]
+                if r == HH_WIDEST_ROUND:
+                    torch.cuda.synchronize()
+                    plan = agg.plans[-1]
+                    peak = {"measured_bytes": torch.cuda.max_memory_allocated() - base,
+                            "chunk_model_bytes": plan.bytes_peak,
+                            "cut_state_bytes": agg.cuts.nbytes,
+                            "chunks": plan.num_chunks,
+                            "chunk_prefixes": plan.chunk_prefixes,
+                            "lane_bytes": plan.lane_bytes, "budget_bytes": plan.budget_bytes}
+                    peak["modeled_bytes"] = peak["chunk_model_bytes"] + peak["cut_state_bytes"]
+                shares.append(servers[1].evaluate_round(r, frontier))
+                torch.cuda.synchronize()
+            round_host_ms.append((time.perf_counter() - t0) * 1e3)
+            sweep.observe_counts(hh.reconstruct_counts(*shares, config.count_bits))
+    if dict(sweep.result) != want:
+        raise AssertionError("heavy_hitters: the sequential sweep disagrees")
+    if peak["measured_bytes"] > peak["modeled_bytes"] + (2 << 20):
+        raise AssertionError(f"heavy_hitters: the widest level took {peak}")
+    windows = {e.name: (e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.name in names}
+    round_device_ms = hh_level_busy(prof, [windows[n] for n in names])
+
+    emit({"phase": "heavy_hitters", "clients": HH_CLIENTS, "domain_bits": HH_DOMAIN_BITS,
+          "level_bits": 4, "threshold": HH_THRESHOLD, "count_bits": 32,
+          "heavy_hitters": {str(k): v for k, v in sorted(want.items())},
+          "widths": widths, "lanes_per_party": lanes,
+          "keygen_s": keygen_s, "keygen_workers": HH_WORKERS,
+          "keygen_ms_per_pair_per_worker": keygen_s * 1e3 * HH_WORKERS / HH_CLIENTS,
+          "report_ms_per_pair_in_workers": report_s * 1e3 / HH_CLIENTS,
+          "pack_ms_per_pair_in_workers": pack_s * 1e3 / HH_CLIENTS,
+          "staging_s": staging_s, "sweep_s": sweep_s,
+          "round_ms": [st.wall_ms for st in result.rounds],
+          "lanes_per_sec_per_party": lanes / sweep_s,
+          "lanes_per_sec_both_parties": 2 * lanes / sweep_s,
+          "chunks_per_level": plans, "launches": launches,
+          "session_device_idle_share": 1.0 - session_busy_ms / ((window[1] - window[0]) / 1e3),
+          "session_profiled_wall_ms": profiled_ms,
+          "session_device_busy_ms": session_busy_ms,
+          "sequential_round_host_ms": round_host_ms,
+          "sequential_round_device_ms": round_device_ms,
+          "widest_level": peak,
+          "cost_ledger": {k: {f: c.get(f) for f in ("samples", "residual_p50",
+                                                    "mean_predicted_ms", "mean_actual_ms")}
+                          for k, c in ledger["cells"].items()},
+          "phase_s": time.perf_counter() - t_phase, "device": smi_line})
+    del servers
+
+
 def main() -> int:
     import torch
 
@@ -2843,6 +3214,45 @@ def main() -> int:
                    4 * (128 * g + g + 128 + 128 * g))
     emit({"phase": "kernel", "name": "value_hash", "path": "dcf", "G": g, **part})
 
+    # K8 and K3 at the heavy-hitters phase's widest level (round 2: 4,096
+    # prefixes, 4 tree levels walked from round 1's cut states), one chunk
+    # of its plan at the card's default budget: prefix-major lanes, per-seed
+    # corrections of the staged keys' KW = 2,048 word columns read at
+    # column m % KW, every word's path bits all ones or all zeros; then the
+    # value hash of the chunk's lanes with zero corrections.
+    from distributed_point_functions_tpu_torch.heavy_hitters import plan_level
+
+    # Their own generator, so the later phases' data stay as they were.
+    hh_words = np.random.default_rng(SEED + 51)
+
+    def hh_rand(*shape):
+        return to_tensor(hh_words.integers(0, 1 << 32, shape, dtype=np.uint32), dev)
+
+    hh_plan = plan_level(HH_CLIENTS, HH_WIDTHS[HH_WIDEST_ROUND], 4, 1)
+    kw = HH_CLIENTS // 32
+    g = hh_plan.chunk_prefixes * kw
+    bits = to_tensor(hh_words.integers(0, 2, (4, hh_plan.chunk_prefixes, 1),
+                                       dtype=np.uint32), dev)
+    args = (hh_rand(16, 8, g), hh_rand(g),
+            (-bits).expand(4, hh_plan.chunk_prefixes, kw).reshape(4, g),
+            hh_rand(4, 16, 8, kw), hh_rand(4, kw), hh_rand(4, kw))
+    part = measure("path_level hh_chunk", lambda: ep.path_walk(*args),
+                   lambda: ep.path_walk_plain(*args, (4,)), 4 * g * path_ops,
+                   4 * (129 * g + 4 * (g + 130 * kw) + 129 * g), plain_reps=1)
+    emit({"phase": "kernel", "name": "path_level", "mode": "hh_chunk", "G": g, "KW": kw,
+          "lanes": 32 * g, "levels": 4, "stops": 1, "chunk_prefixes": hh_plan.chunk_prefixes,
+          "chunks_at_widest_level": hh_plan.num_chunks, **part,
+          **split_info("path_walk_kernel")})
+    del args
+    args = (hh_rand(16, 8, g), torch.zeros((g,), dtype=torch.int32, device=dev),
+            torch.zeros((16, 8, 1), dtype=torch.int32, device=dev))
+    part = measure("value_hash hh_chunk", lambda: ep.value_hash(*args),
+                   lambda: ep.value_hash_plain(*args), g * value_ops,
+                   4 * (128 * g + g + 128 + 128 * g), plain_reps=1)
+    emit({"phase": "kernel", "name": "value_hash", "path": "hh_chunk", "G": g,
+          "lanes": 32 * g, "chunk_prefixes": hh_plan.chunk_prefixes, **part})
+    del args
+
     # 4. A small database served on the card and by the plain versions.
     small = [rng.bytes(32) for _ in range(1 << 12)]
     client = DenseDpfPirClient.create(len(small), encrypt_decrypt.encrypt)
@@ -3039,6 +3449,12 @@ def main() -> int:
     sparse_db, sparse_params, sparse_value_of, _ = sparse_phase(dev, smi_line)
     sparse_two_party_phase(sparse_db, sparse_params, sparse_value_of, dev, smi_line)
     del sparse_db, sparse_value_of
+
+    # Private heavy hitters: the card against the plain versions at small
+    # sizes, then 65,536 clients over 64-bit values. Its own generator.
+    hh_rng = np.random.default_rng(SEED + 50)
+    hh_small_phase(hh_rng, dev)
+    heavy_hitters_phase(dev, smi_line)
 
     # 8. Every ported kernel, with its launches from the run of the mode
     # (or path) that launches it.

@@ -7,5 +7,6 @@ the JAX package's framework-free modules is copied here.
 Every entry point takes `device=None`, which means the CUDA card; pass
 `device="cpu"` to run the plain PyTorch versions of the kernels on the
 host (the CPU tests do). See `pir.server.DenseDpfPirServer` for the main
-path and `interop` for carrying state across from the JAX package.
+path, `heavy_hitters` for the private heavy-hitters sweep, and `interop`
+for carrying state across from the JAX package.
 """

@@ -1,5 +1,11 @@
-"""The dense-PIR selection-byte model: the JAX package's
-`capacity/model.py` (`CapacityModel`, `:322-591`), counted for this port.
+"""The byte and time models of the port's serving work: the JAX
+package's `capacity/model.py`, counted for this port. Dense PIR's
+selection bytes (`CapacityModel`, JAX `:322-591`) and the heavy-hitters
+half (JAX `:136-320`, `:506-517`, `:593-629`, `:654-657`, `:711-730`):
+the frontier budget, the lane bytes of one level chunk, the chunking
+plan, and the pricing of a level in device-ms from a calibrated rate.
+
+Dense PIR:
 
 What each serving tier of dense PIR keeps live of the selections at its
 peak, in bytes, and how large a streaming or chunked split may be under a
@@ -26,23 +32,50 @@ selections and are not counted.
 
 The budget is an explicit `selection_budget`, else 1/16 of the device's
 memory (`device.device_memory_bytes`: the CUDA card's), else 1 GiB (the
-CPU). Environment overrides are not read. The JAX model's throughput
-calibration, pricing, mesh shapes and heavy-hitters budgets come with the
-serving runtime.
+CPU).
+
+Heavy hitters: one level evaluates every key at every frontier prefix,
+`[keys, prefixes]` lanes, in chunks of prefixes. `hh_lane_bytes` counts
+what one chunk of `dpf.evaluate_prefixes_batch` holds per lane at its
+peak (keys padded to 32); `plan_hh_level` takes the largest power-of-two
+chunk whose lanes fit the frontier budget: an explicit
+`frontier_budget`, else 1/64 of the card's memory (the JAX package's
+fraction), else 256 MiB on the CPU. The cut states the aggregator keeps
+between levels are not lane bytes: they are counted apart
+(`dpf.BatchCutState.nbytes`). `price_hh_level` prices a level at the
+calibrated lanes/s: the newest clean record of
+`heavy_hitters_sweep_lanes_per_sec` in a history file the caller names
+(`ThroughputCalibration(history_path)`, in `calibration.py`: the file
+reader, whose malformed lines are skipped, stays out of this module),
+else the card's rate measured by `chip_smoke.py`. Environment overrides are not read; the dense-PIR
+pricing, mesh shapes and recalibration stay with the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Optional
 
 from ..device import device_memory_bytes as probe_device_memory
+from .calibration import ThroughputCalibration
 
 _SELECTION_BLOCK_BYTES = 16
 _DEFAULT_SELECTION_BUDGET = 1 << 30  # 1 GiB
+_DEFAULT_FRONTIER_BUDGET = 1 << 28  # 256 MiB
 # Selection tensors get 1/16 of known device memory: the database, cut
-# states and scratch share the rest (the JAX package's fraction).
+# states and scratch share the rest; the heavy-hitters frontier 1/64 (the
+# JAX package's fractions).
 _SELECTION_MEMORY_FRACTION = 16
+_FRONTIER_MEMORY_FRACTION = 64
+
+# The heavy-hitters sweep's lanes/s on the card where no history record
+# calibrates it: `chip_smoke.py`'s `heavy_hitters` phase at 65,536
+# clients over 64-bit values, one party's 340,787,200 lanes over the
+# Leader/Helper session's 1.008 s, on an NVIDIA H100 80GB HBM3 at a
+# 700 W power limit.
+HH_LANES_PER_SEC_FALLBACK = 337_949_863.0
+_HH_LANES_METRIC = "heavy_hitters_sweep_lanes_per_sec"
 
 
 def padded_keys(num_keys: int) -> int:
@@ -50,12 +83,38 @@ def padded_keys(num_keys: int) -> int:
     return -(-num_keys // 32) * 32
 
 
-class CapacityModel:
-    """Selection bytes of each dense-PIR tier against a budget."""
+@dataclasses.dataclass(frozen=True)
+class WorkCost:
+    """Price of one unit of work."""
 
-    def __init__(self, selection_budget: Optional[int] = None):
+    bytes_peak: int  # modeled peak live device bytes while it runs
+    device_ms: float  # estimated device milliseconds
+    quantity: int  # atoms it contains (lanes)
+    unit: str  # "hh_lanes"
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelChunking:
+    """Resolved prefix chunking of one heavy-hitters level."""
+
+    chunk_prefixes: int  # power of two
+    num_chunks: int
+    lane_bytes: int
+    bytes_peak: int  # modeled peak of one chunk
+    budget_bytes: int
+
+
+class CapacityModel:
+    """Selection bytes of each dense-PIR tier against a budget, and the
+    heavy-hitters frontier's lane bytes, chunking and price."""
+
+    def __init__(self, selection_budget: Optional[int] = None,
+                 frontier_budget: Optional[int] = None,
+                 calibration: Optional[ThroughputCalibration] = None):
         self._device_memory = probe_device_memory()
         self._selection_budget = selection_budget
+        self._frontier_budget = frontier_budget
+        self.calibration = calibration if calibration is not None else ThroughputCalibration()
 
     def selection_budget_bytes(self) -> int:
         """The budget for selection tensors: the explicit one, else a
@@ -109,6 +168,65 @@ class CapacityModel:
         while cel > 0 and self.chunked_selection_bytes(num_keys, cel) > budget:
             cel -= 1
         return cel
+
+
+    # -- heavy-hitters frontier bytes and price ---------------------------
+
+    def frontier_budget_bytes(self) -> int:
+        """The byte budget of one heavy-hitters level chunk: the explicit
+        one, else 1/64 of known device memory, else 256 MiB."""
+        if self._frontier_budget is not None:
+            return max(1, int(self._frontier_budget))
+        if self._device_memory is not None:
+            return max(1, self._device_memory // _FRONTIER_MEMORY_FRACTION)
+        return _DEFAULT_FRONTIER_BUDGET
+
+    def hh_lane_bytes(self, walk_levels: int, value_blocks: int) -> int:
+        """Device bytes one (key, prefix) lane of a level chunk holds at
+        its peak, 16 a 128-bit block (planes or limbs), counted from the
+        tensors `dpf.evaluate_prefixes_batch` keeps alive: the walk's
+        input and output states (32), a packed path word per level walked
+        and the input and output control words ((walk_levels + 2) / 8);
+        for a one-block value, the walk's output (the chunk's cut state:
+        16, and 1/8 of packed control), K3's output (16) and the widest
+        moment of its `planes_to_limbs` (56: a contiguous copy, the halves
+        of a transpose round and its result); for B > 1 blocks the seeds'
+        limbs and the B blocks stacked, padded, in planes, hashed and
+        transposed back (33 + 136 B). The larger stage is the peak,
+        rounded up to whole bytes."""
+        walk = 32 + -(-(walk_levels + 2) // 8)
+        value = 89 if value_blocks == 1 else 33 + 136 * value_blocks
+        return max(walk, value)
+
+    def plan_hh_level(self, num_keys: int, num_prefixes: int, walk_levels: int,
+                      value_blocks: int, budget_bytes: Optional[int] = None
+                      ) -> LevelChunking:
+        """The largest power-of-two prefix chunk whose lanes (keys padded
+        to 32) fit the budget; at least one prefix. Chunked evaluation
+        equals unchunked: lanes are independent."""
+        budget = self.frontier_budget_bytes() if budget_bytes is None else budget_bytes
+        lb = self.hh_lane_bytes(walk_levels, value_blocks)
+        keys = padded_keys(num_keys)
+        chunk = 1 << max(0, (max(1, num_prefixes) - 1).bit_length())
+        while chunk > 1 and keys * chunk * lb > budget:
+            chunk //= 2
+        return LevelChunking(chunk_prefixes=chunk, num_chunks=-(-num_prefixes // chunk),
+                             lane_bytes=lb, bytes_peak=keys * chunk * lb,
+                             budget_bytes=budget)
+
+    def hh_lanes_per_sec(self) -> float:
+        return self.calibration.throughput(_HH_LANES_METRIC, HH_LANES_PER_SEC_FALLBACK)
+
+    def price_hh_level(self, num_keys: int, num_prefixes: int, walk_levels: int,
+                       value_blocks: int) -> WorkCost:
+        """Price one heavy-hitters level (`num_keys x num_prefixes`
+        lanes): its chunk's modeled peak and device-ms at the calibrated
+        lanes/s."""
+        chunking = self.plan_hh_level(num_keys, num_prefixes, walk_levels, value_blocks)
+        lanes = num_keys * num_prefixes
+        lps = max(1e-6, self.hh_lanes_per_sec())
+        return WorkCost(bytes_peak=chunking.bytes_peak, device_ms=lanes * 1e3 / lps,
+                        quantity=lanes, unit="hh_lanes")
 
 
 _default_model: Optional[CapacityModel] = None

@@ -4,10 +4,14 @@ The port of the JAX package's `dpf.py`:
 
 * **Key generation** runs on the host, O(tree depth) per key:
   `generate_keys_incremental` for any hierarchy, with Python-int
-  arithmetic and the numpy AES oracle (`ops/aes.py`), and the batched
-  `generate_keys_batch` for the dense-PIR key shape on the native host
-  library (`native.py`; its numpy twin `_generate_keys_batch_plain` is
-  the plain version the tests hold it against).
+  arithmetic and the native host library's AES (`native.mmo_hash_bytes`,
+  AES-NI; `_mmo_host_plain`, the numpy oracle of `ops/aes.py`, is its
+  plain version), and `generate_keys_batch`: the dense-PIR key shape in
+  one native batch (`native.py`; its numpy twin
+  `_generate_keys_batch_plain` is the plain version the tests hold it
+  against), every other single-level shape pair by pair through
+  `generate_keys_incremental`, as the JAX package does. `pack_keys` turns
+  many keys into host arrays (`HostKeyBatch`), the host half of staging.
 * **Evaluation** runs on the device in bit-plane layout (`[16, 8, G]`,
   32 lanes per word, `ops/aes_bitslice.py`):
   - full-domain and subtree expansion (`evaluate_until`, `evaluate_next`)
@@ -16,9 +20,11 @@ The port of the JAX package's `dpf.py`:
     dense-PIR expansion (`pir/dense_eval_planes.expand_planned`: K2-K6)
     with one key's shared corrections, and leaves plane layout once, in
     natural domain order;
-  - path walks (`evaluate_at`, resumed hierarchical evaluation, and the
-    multi-key engine behind the DCF) run every tree level of a walk in one
-    K8 `path_walk` launch, with shared or per-seed corrections;
+  - path walks (`evaluate_at`, resumed hierarchical evaluation, the
+    multi-key engine behind the DCF, and `evaluate_prefixes_batch`, every
+    staged key at every prefix of a level, resumed from a `BatchCutState`)
+    run every tree level of a walk in one K8 `path_walk` launch, with
+    shared or per-seed corrections;
   - leaf values come from K3 `value_hash`, then limb arithmetic on the
     value types (`value_types.py`). A leaf of one 128-bit block is hashed
     at the expansion's exit (K4's or K5's fused hash, or K3 in level
@@ -68,7 +74,14 @@ from .ops.aes_bitslice import (
 )
 from .ops.expand_planes import path_walk, value_hash
 from .ops.words import to_tensors
-from .value_types import ValueType, XorType, tree_leaves, tree_map, tree_unflatten
+from .value_types import (
+    ValueType,
+    XorType,
+    _LimbValueType,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 _U128_MASK = (1 << 128) - 1
 
@@ -225,20 +238,133 @@ class StagedKeyBatch:
             [tree_map(zero_row, vc) for vc in self.value_corrections])
 
 
+@dataclasses.dataclass
+class HostKeyBatch:
+    """Many keys of one DPF as host arrays, the host half of
+    `stage_key_batch` (`DistributedPointFunction.pack_keys`): root seeds
+    uint32[n, 4], parties uint32[n], cw_seeds uint32[L, n, 4], cw_left /
+    cw_right uint32[L, n] (0/1), and per hierarchy level the value
+    corrections, a value of batch shape [n, epb] (uint32[n, epb, nlimbs],
+    a tuple of them for a tuple type). Numpy arrays pickle in bulk, so
+    worker processes that make keys hand them back this way."""
+
+    seeds: np.ndarray
+    parties: np.ndarray
+    cw_seeds: np.ndarray
+    cw_left: np.ndarray
+    cw_right: np.ndarray
+    value_corrections: list
+
+    def __len__(self) -> int:
+        return self.seeds.shape[0]
+
+    @classmethod
+    def concat(cls, batches: Sequence["HostKeyBatch"]) -> "HostKeyBatch":
+        """The keys of `batches`, in order, as one batch."""
+        return cls(
+            np.concatenate([b.seeds for b in batches]),
+            np.concatenate([b.parties for b in batches]),
+            np.concatenate([b.cw_seeds for b in batches], axis=1),
+            np.concatenate([b.cw_left for b in batches], axis=1),
+            np.concatenate([b.cw_right for b in batches], axis=1),
+            [tree_map(lambda *xs: np.concatenate(xs), *[b.value_corrections[hl]
+                                                       for b in batches])
+             for hl in range(len(batches[0].value_corrections))])
+
+
+@dataclasses.dataclass
+class BatchCutState:
+    """The walk states of MANY keys at one hierarchy level: for every
+    (key, prefix) pair the seed and control bit before the value hash, at
+    the level's tree level (the JAX package's `BatchCutState`).
+    `evaluate_prefixes_batch` returns one after every level, so the next
+    level walks only the new tree levels, from any subset's children.
+
+    They stay on the device in the layout the walk reads and writes, so a
+    resumed level costs no bit transpose: prefix-major planes, the
+    batch's Kpad = 32 KW keys in the word columns of each prefix (column
+    p * KW + w holds keys 32w to 32w + 31 at prefix p). `seeds` and
+    `control` give the JAX package's [num_keys, num_prefixes] view."""
+
+    hierarchy_level: int
+    prefixes: np.ndarray  # sorted domain indices; uint64 or object
+    state: torch.Tensor  # int32[16, 8, P * KW] seed planes
+    ctrl: torch.Tensor  # int32[P * KW] packed control bits
+    num_keys: int
+
+    @classmethod
+    def build(cls, hierarchy_level: int, prefixes: Sequence[int], state: torch.Tensor,
+              ctrl: torch.Tensor, num_keys: int) -> "BatchCutState":
+        """The state of ascending int `prefixes`, held as uint64, or as
+        objects where one is above 2^63 - 1."""
+        wide = prefixes[-1] > 0x7FFFFFFFFFFFFFFF
+        return cls(hierarchy_level, np.array(prefixes, dtype=object if wide else np.uint64),
+                   state, ctrl, num_keys)
+
+    def __len__(self) -> int:
+        return len(self.prefixes)
+
+    @property
+    def seeds(self) -> torch.Tensor:
+        """int32[num_keys, num_prefixes, 4] limbs."""
+        limbs = planes_to_limbs(self.state).reshape(len(self), -1, 4)
+        return limbs[:, :self.num_keys].transpose(0, 1)
+
+    @property
+    def control(self) -> torch.Tensor:
+        """int32[num_keys, num_prefixes] 0/1."""
+        bits = unpack_select_bits(self.ctrl).reshape(len(self), -1)
+        return bits[:, :self.num_keys].transpose(0, 1)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the state holds."""
+        return (self.state.numel() + self.ctrl.numel()) * 4
+
+    def positions(self, wanted_list) -> np.ndarray:
+        """Positions of `wanted_list` prefixes in this state; raises
+        ValueError naming the first missing one."""
+        wide = self.prefixes.dtype == object
+        wanted = np.array(wanted_list, dtype=object if wide else np.uint64)
+        pos = np.searchsorted(self.prefixes, wanted)
+        pos_clipped = np.minimum(pos, len(self.prefixes) - 1)
+        ok = (pos < len(self.prefixes)) & (self.prefixes[pos_clipped] == wanted)
+        if not np.all(ok):
+            missing = wanted[np.argmin(ok)]
+            raise ValueError(
+                f"prefix {int(missing)} not present in cut state at "
+                f"hierarchy level {self.hierarchy_level}")
+        return pos_clipped.astype(np.int64)
+
+
 # ---------------------------------------------------------------------------
 # Host-side AES helpers (numpy oracle)
 # ---------------------------------------------------------------------------
 
 
-def _mmo_host(rk: np.ndarray, xs: Sequence[int]) -> List[int]:
+# The host MMO's fixed keys, by `native.mmo_hash`'s index.
+_HOST_LEFT, _HOST_RIGHT, _HOST_VALUE = 0, 1, 2
+_HOST_ROUND_KEYS = (fixed_keys.RK_LEFT, fixed_keys.RK_RIGHT, fixed_keys.RK_VALUE)
+
+
+def _mmo_host(which: int, xs: Sequence[int]) -> List[int]:
+    """MMO hash of 128-bit ints with fixed key `which` (0 left, 1 right,
+    2 value) on the native host library (`native.mmo_hash`, AES-NI).
+    Key generation's AES; `_mmo_host_plain` is its numpy version."""
+    out = native.mmo_hash_bytes(which, b"".join(x.to_bytes(16, "little") for x in xs))
+    return [int.from_bytes(out[i:i + 16], "little") for i in range(0, len(out), 16)]
+
+
+def _mmo_host_plain(which: int, xs: Sequence[int]) -> List[int]:
+    """`_mmo_host` with the numpy AES oracle (`ops/aes.py`)."""
     blocks = np.stack([aes.u128_to_limbs(x) for x in xs])
-    out = aes.mmo_hash_np(rk, blocks)
+    out = aes.mmo_hash_np(_HOST_ROUND_KEYS[which], blocks)
     return [aes.limbs_to_u128(out[i]) for i in range(out.shape[0])]
 
 
 def _value_hash_bytes_host(seed: int, num_blocks: int) -> bytes:
     xs = [(seed + j) & _U128_MASK for j in range(num_blocks)]
-    outs = _mmo_host(fixed_keys.RK_VALUE, xs)
+    outs = _mmo_host(_HOST_VALUE, xs)
     return b"".join(x.to_bytes(16, "little") for x in outs)
 
 
@@ -505,17 +631,31 @@ class DistributedPointFunction:
     def generate_keys_batch(
         self, alphas: Sequence[int], betas: Sequence, _root_seeds=None
     ) -> Tuple[List[DpfKey], List[DpfKey]]:
-        """Generate key pairs for many (alpha, beta) points at once, on the
-        native host library (`native.keygen_batch_dense`: all keys' tree
-        levels in lockstep, AES-NI batched over both parties' seeds).
+        """Generate key pairs for many (alpha, beta) points at once.
+
+        The dense-PIR key shape (one hierarchy level, `XorType(128)`,
+        domain <= 2^63) runs on the native host library
+        (`native.keygen_batch_dense`: all keys' tree levels in lockstep,
+        AES-NI batched over both parties' seeds); every other shape makes
+        its pairs one at a time with `generate_keys_incremental`, chosen by
+        shape up front, as the JAX package does.
 
         `_root_seeds` (uint32[2, n, 4]) injects the two parties' root
         seeds, so tests can hold the keys against the JAX package's and
         against the numpy plain version (`_generate_keys_batch_plain`);
-        otherwise they are drawn from `secrets`. The dense-PIR key shape
-        only (one hierarchy level, `XorType(128)`, domain <= 2^63); other
-        shapes take `generate_keys_incremental`.
+        otherwise they are drawn from `secrets`.
         """
+        if not self._dense_batch_shape():
+            if len(betas) != len(alphas):
+                raise ValueError("alphas and betas must have the same length")
+            roots = [None] * len(alphas)
+            if _root_seeds is not None:
+                raw = np.asarray(_root_seeds, dtype=np.uint32)
+                roots = [(aes.limbs_to_u128(raw[0, i]), aes.limbs_to_u128(raw[1, i]))
+                         for i in range(len(alphas))]
+            pairs = [self.generate_keys_incremental(a, [b], _root_seeds=r)
+                     for a, b, r in zip(alphas, betas, roots)]
+            return [p[0] for p in pairs], [p[1] for p in pairs]
         raw, alphas_np, beta_limbs, num_cw = self._batch_inputs(
             alphas, betas, _root_seeds)
         n = alphas_np.shape[0]
@@ -526,6 +666,15 @@ class DistributedPointFunction:
             raw, cw8.view("<u4").reshape(num_cw, n, 4), ctrl8[..., 0],
             ctrl8[..., 1], vc8.view("<u4"))
 
+    def _dense_batch_shape(self) -> bool:
+        """Whether this DPF has the dense-PIR key shape that the native
+        batch generates: one hierarchy level, `XorType(128)`, domain <=
+        2^63."""
+        vt = self.parameters[0].value_type
+        return (len(self.parameters) == 1 and isinstance(vt, XorType)
+                and vt.bits == 128 and self._blocks_needed[0] == 1
+                and self.parameters[-1].log_domain_size <= 63)
+
     def _batch_inputs(self, alphas, betas, _root_seeds):
         """Validate a dense-PIR key batch: (root seeds uint32[2, n, 4],
         alphas uint64[n], betas uint32[n, 4], correction levels)."""
@@ -534,17 +683,10 @@ class DistributedPointFunction:
             raise ValueError("alphas and betas must have the same length")
         vt = self.parameters[0].value_type
         lds = self.parameters[-1].log_domain_size
-        if not (
-            len(self.parameters) == 1
-            and isinstance(vt, XorType)
-            and vt.bits == 128
-            and self._blocks_needed[0] == 1
-            and lds <= 63
-        ):
+        if not self._dense_batch_shape():
             raise NotImplementedError(
-                "generate_keys_batch supports the dense-PIR key shape only "
-                "(one hierarchy level, XorType(128), domain <= 2^63); use "
-                "generate_keys_incremental")
+                "the native key batch supports the dense-PIR key shape only "
+                "(one hierarchy level, XorType(128), domain <= 2^63)")
         for a in alphas:
             if not isinstance(a, (int, np.integer)):
                 raise TypeError(f"alpha must be an integer, got {type(a)}")
@@ -691,8 +833,8 @@ class DistributedPointFunction:
                 value_correction = self._compute_value_correction(
                     hl, seeds, alpha, betas[hl], invert=bool(control[1]))
             # Expand both parties' seeds left and right.
-            l0, l1 = _mmo_host(fixed_keys.RK_LEFT, seeds)
-            r0, r1 = _mmo_host(fixed_keys.RK_RIGHT, seeds)
+            l0, l1 = _mmo_host(_HOST_LEFT, seeds)
+            r0, r1 = _mmo_host(_HOST_RIGHT, seeds)
             t = [[l0 & 1, l1 & 1], [r0 & 1, r1 & 1]]  # [branch][party]
             expanded = [[l0 & ~1, l1 & ~1], [r0 & ~1, r1 & ~1]]
 
@@ -726,9 +868,9 @@ class DistributedPointFunction:
         key1 = DpfKey(
             seed=root_seeds[1], party=1,
             correction_words=[
-                dataclasses.replace(
-                    cw, value_correction=(None if cw.value_correction is None
-                                          else list(cw.value_correction)))
+                CorrectionWord(cw.seed, cw.control_left, cw.control_right,
+                               None if cw.value_correction is None
+                               else list(cw.value_correction))
                 for cw in correction_words
             ],
             last_level_value_correction=list(last_vc),
@@ -803,41 +945,68 @@ class DistributedPointFunction:
         vc = self._value_correction_host(key, hierarchy_level)
         return tree_map(lambda *xs: np.stack(xs), *[vt.host_const(v) for v in vc])
 
-    def stage_key_batch(self, keys: Sequence[DpfKey]) -> StagedKeyBatch:
-        """Stage a batch of keys on the device in ONE host-to-device copy:
-        one pass over the distinct key objects (a key repeated in the batch
-        is read once) assembles numpy arrays, which move with each lane's
-        row; the gather into lanes and the packing into plane layout run
-        on the device (`StagedKeyBatch.from_lanes`). Reusable by any number
-        of `evaluate_and_apply` / `evaluate_and_accumulate` calls."""
+    def pack_keys(self, keys: Sequence[DpfKey]) -> HostKeyBatch:
+        """The keys' fields as host arrays, each field of all keys in one
+        conversion (a limb value type's corrections included; a tuple
+        type's go key by key)."""
+        n, num_cw = len(keys), self._tree_levels_needed - 1
+        for key in keys:
+            self._validate_key(key)
+        seeds = aes.u128s_to_limbs([k.seed for k in keys]).reshape(n, 4)
+        parties = np.array([k.party for k in keys], dtype=np.uint32)
+        cws = [cw for k in keys for cw in k.correction_words]
+        cw_seeds = aes.u128s_to_limbs([cw.seed for cw in cws]).reshape(n, num_cw, 4)
+        flags = np.array([(cw.control_left, cw.control_right) for cw in cws],
+                         dtype=np.uint32).reshape(n, num_cw, 2)
+        vcs = []
+        for hl, p in enumerate(self.parameters):
+            vt = p.value_type
+            if isinstance(vt, _LimbValueType):
+                nl, mask = vt.nlimbs, (1 << (32 * vt.nlimbs)) - 1
+                data = b"".join((int(v) & mask).to_bytes(4 * nl, "little")
+                                for k in keys
+                                for v in self._value_correction_host(k, hl))
+                vcs.append(np.frombuffer(data, dtype="<u4").astype(np.uint32).reshape(
+                    n, vt.elements_per_block(), nl))
+            else:
+                vcs.append(tree_map(lambda *xs: np.stack(xs),
+                                    *[self._value_correction_np(k, hl) for k in keys]))
+        return HostKeyBatch(seeds, parties,
+                            np.ascontiguousarray(cw_seeds.transpose(1, 0, 2)),
+                            np.ascontiguousarray(flags[..., 0].T),
+                            np.ascontiguousarray(flags[..., 1].T), vcs)
+
+    def stage_key_batch(self, keys) -> StagedKeyBatch:
+        """Stage a batch of keys (a sequence of `DpfKey`s, or a
+        `HostKeyBatch`) on the device in ONE host-to-device copy: the
+        distinct key objects' arrays (`pack_keys`; a key repeated in the
+        batch is read once), a zero row for the padding lanes, and each
+        lane's row index move together; the gather into lanes and the
+        packing into plane layout run on the device
+        (`StagedKeyBatch.from_lanes`). Reusable by any number of
+        `evaluate_and_apply` / `evaluate_and_accumulate` /
+        `evaluate_prefixes_batch` calls."""
         dev = self._dev()
         n = len(keys)
         if n == 0:
             raise ValueError("keys must not be empty")
-        lanes = _pad32(n)
-        uniq, rows = distinct_rows(keys)
-        u, num_cw = len(uniq), self._tree_levels_needed - 1
-        seeds = np.zeros((u + 1, 4), dtype=np.uint32)  # row u: the padding lanes
-        parties = np.zeros((u + 1,), dtype=np.uint32)
-        cw_seeds = np.zeros((num_cw, u + 1, 4), dtype=np.uint32)
-        cw_left = np.zeros((num_cw, u + 1), dtype=np.uint32)
-        cw_right = np.zeros((num_cw, u + 1), dtype=np.uint32)
-        vcs = [tree_map(lambda c, p=p: np.zeros(
-            (u + 1, p.value_type.elements_per_block()) + c.shape, dtype=np.uint32),
-            p.value_type.host_const(p.value_type.zero())) for p in self.parameters]
-        for j, key in enumerate(uniq):
-            self._validate_key(key)
-            seeds[j] = aes.u128_to_limbs(key.seed)
-            parties[j] = key.party
-            if num_cw:
-                cw_seeds[:, j] = aes.u128s_to_limbs([cw.seed for cw in key.correction_words])
-                cw_left[:, j] = [cw.control_left for cw in key.correction_words]
-                cw_right[:, j] = [cw.control_right for cw in key.correction_words]
-            for hl in range(len(self.parameters)):
-                vc = self._value_correction_np(key, hl)
-                tree_map(lambda dst, src, j=j: dst.__setitem__(j, src), vcs[hl], vc)
-        rows = np.concatenate([rows, np.full(lanes - n, u)])
-        staged = to_tensors([rows, parties, seeds, cw_seeds, cw_left, cw_right,
+        if isinstance(keys, HostKeyBatch):
+            host, rows = keys, np.arange(n)
+        else:
+            uniq, rows = distinct_rows(keys)
+            host = self.pack_keys(uniq)
+        u = len(host)
+
+        def zero_row(a, axis=0):  # row u: the padding lanes
+            pad = [(0, 0)] * a.ndim
+            pad[axis] = (0, 1)
+            return np.pad(a, pad)
+
+        rows = np.concatenate([rows, np.full(_pad32(n) - n, u)])
+        vcs = [tree_map(zero_row, vc) for vc in host.value_corrections]
+        staged = to_tensors([rows, zero_row(host.parties), zero_row(host.seeds),
+                             zero_row(host.cw_seeds, 1), zero_row(host.cw_left, 1),
+                             zero_row(host.cw_right, 1),
                              *[leaf for vc in vcs for leaf in tree_leaves(vc)]], dev)
         leaves = iter(staged[6:])
         return StagedKeyBatch.from_lanes(
@@ -1269,6 +1438,98 @@ class DistributedPointFunction:
         for hl, v in enumerate(values):
             if op(v, hl) is False:
                 break
+
+    def evaluate_prefixes_batch(self, staged: StagedKeyBatch, hierarchy_level: int,
+                                prefixes: Sequence[int],
+                                cuts: Optional[BatchCutState] = None):
+        """Evaluate EVERY staged key at EVERY prefix of one hierarchy level,
+        from the root or resuming from an earlier level's cut states: the
+        batched per-level engine of the heavy-hitters sweep.
+
+        `prefixes` are strictly ascending domain indices at
+        `hierarchy_level`. With `cuts` (a `BatchCutState` of an earlier
+        level, holding every prefix's ancestor) each lane walks only the
+        tree levels between the two levels; without, from the root.
+
+        Lanes are prefix-major (lane = prefix * Kpad + key): each packed
+        word holds 32 keys at one prefix, so K8 reads each lane's own key's
+        corrections straight from the staged batch (KW = Kpad / 32 word
+        columns, read at column m % KW) and every word's path bits are all
+        ones or all zeros. The walk is one K8 launch, the value hash one K3
+        launch, then the leaf stage. Returns `(values, new_cuts)`: the
+        level's values of batch shape [num_keys, len(prefixes)] (party
+        negation per key; a view of the prefix-major result), and the
+        `BatchCutState` at `hierarchy_level` for the next level."""
+        num_keys = staged.n
+        num_prefixes = len(prefixes)
+        if num_prefixes == 0:
+            raise ValueError("prefixes must not be empty")
+        if not (0 <= hierarchy_level < len(self.parameters)):
+            raise ValueError("hierarchy_level out of range")
+        lds = self.parameters[hierarchy_level].log_domain_size
+        prefixes = [int(p) for p in prefixes]
+        last = -1
+        for p in prefixes:
+            if not (0 <= p < (1 << lds)):
+                raise ValueError(f"prefix {p} out of range")
+            if p <= last:
+                raise ValueError("prefixes must be strictly ascending")
+            last = p
+        stop = self._hierarchy_to_tree[hierarchy_level]
+        start = 0
+        host = {}
+        if cuts is not None:
+            if cuts.hierarchy_level >= hierarchy_level:
+                raise ValueError("cuts.hierarchy_level must precede hierarchy_level")
+            if cuts.num_keys != num_keys or cuts.ctrl.shape[0] != len(cuts) * staged.ctrl.shape[0]:
+                raise ValueError("cuts/staged key-count mismatch")
+            start = self._hierarchy_to_tree[cuts.hierarchy_level]
+            shift = lds - self.parameters[cuts.hierarchy_level].log_domain_size
+            host["pos"] = cuts.positions([p >> shift for p in prefixes])
+        levels = stop - start
+        # The domain bits below the tree level are the block index.
+        bits, mask = lds - stop, (1 << (lds - stop)) - 1
+        if last >> 64:  # past uint64: Python ints
+            pref = np.array(prefixes, dtype=object)
+        else:
+            pref, bits, mask = np.array(prefixes, dtype=np.uint64), np.uint64(bits), np.uint64(mask)
+        tree = points_to_limbs(pref >> bits, num_prefixes)
+        host["path"] = _path_bits(tree, [levels - 1 - j for j in range(levels)])
+        host["block"] = points_to_limbs(pref & mask, num_prefixes)[:, 0]
+        (t,) = _to_device(staged.parties.device, host)
+        kw = staged.ctrl.shape[0]
+        if cuts is None:
+            state = staged.state.repeat(1, 1, num_prefixes)
+            ctrl = staged.ctrl.repeat(num_prefixes)
+        else:
+            cols = (t["pos"].long()[:, None] * kw
+                    + torch.arange(kw, device=staged.ctrl.device)).reshape(-1)
+            state = cuts.state.index_select(2, cols)
+            ctrl = cuts.ctrl.index_select(0, cols)
+            del cols
+        sel = (-t["path"])[:, :, None].expand(levels, num_prefixes, kw).reshape(
+            levels, num_prefixes * kw)
+        state, ctrl = _eval_paths(state, ctrl, sel, staged.cw_planes[start:stop],
+                                  staged.cw_left[start:stop], staged.cw_right[start:stop])
+        del sel
+        vt = self.parameters[hierarchy_level].value_type
+        num_blocks = self._blocks_needed[hierarchy_level]
+        if num_blocks == 1:
+            blocks = planes_to_limbs(_hash_planes(state))[:, None]
+        else:
+            blocks = _value_hash(planes_to_limbs(state), num_blocks)
+        kpad = 32 * kw
+        blocks = blocks.reshape(num_prefixes, kpad, num_blocks, 4)
+        control = unpack_select_bits(ctrl).reshape(num_prefixes, kpad)
+        values = _leaf_stage_at(
+            blocks, control, staged.value_corrections[hierarchy_level],
+            t["block"].long()[:, None].expand(num_prefixes, kpad), vt, -1)
+        del blocks, control
+        party_one = (staged.parties != 0).expand(num_prefixes, kpad)
+        values = vt.dev_where(party_one, vt.dev_neg(values), values)
+        values = tree_map(lambda x: x[:, :num_keys].transpose(0, 1), values)
+        return values, BatchCutState.build(hierarchy_level, prefixes, state, ctrl,
+                                           num_keys)
 
     # -- internals ----------------------------------------------------------
 

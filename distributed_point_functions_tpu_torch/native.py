@@ -155,13 +155,20 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def mmo_hash(which: int, blocks: np.ndarray) -> np.ndarray:
-    """MMO hash of uint8[n, 16] blocks; which: 0 = left, 1 = right, 2 = value."""
+def mmo_hash_bytes(which: int, data: bytes) -> bytes:
+    """MMO hash of the 16-byte blocks of `data`; which: 0 = left, 1 =
+    right, 2 = value. Bytes in and out, no numpy: the cost of key
+    generation's few-block hashes is the call itself."""
     lib = get_lib()
-    blocks = _u8(blocks).reshape(-1, 16)
-    out = np.empty_like(blocks)
-    lib.dpf_mmo_hash(_keys_ctx, which, _ptr(blocks), _ptr(out), blocks.shape[0])
-    return out
+    out = ctypes.create_string_buffer(len(data))
+    lib.dpf_mmo_hash(_keys_ctx, which, data, out, len(data) // 16)
+    return out.raw
+
+
+def mmo_hash(which: int, blocks: np.ndarray) -> np.ndarray:
+    """`mmo_hash_bytes` of uint8[n, 16] blocks."""
+    out = mmo_hash_bytes(which, _u8(blocks).reshape(-1, 16).tobytes())
+    return np.frombuffer(out, dtype=np.uint8).reshape(-1, 16).copy()
 
 
 def evaluate_seeds(seeds: np.ndarray, control: np.ndarray, paths: np.ndarray,

@@ -13,7 +13,11 @@ Copied from the JAX package (`tracing`, `phases`, `events`,
 * `critical_path` -- the Helper leg's skew estimate and its split into
   network, queue and compute;
 * `device` -- first dispatches per bucket shape, device memory
-  watermarks, and the host <-> device transfer ledger.
+  watermarks, and the host <-> device transfer ledger;
+* `costmodel` and `slo` (copied) -- the cost ledger that joins the
+  capacity model's price of each heavy-hitters level with its measured
+  time and peak bytes, and the declarative objective that grades its
+  drift.
 
 The layers run serving -> observability -> utils / robustness; nothing
 here imports `pir/`, `ops/` or `serving/`.

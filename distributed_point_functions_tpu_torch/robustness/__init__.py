@@ -5,12 +5,15 @@
   snapshot rotation. Armed from code only; disarmed it costs one
   attribute read a site.
 * `breaker` -- the closed / open / half-open circuit breaker the Leader
-  puts on its Helper leg.
+  puts on its Helper leg;
+* `checkpoint` -- the atomic JSON store the heavy-hitters Leader keeps
+  its sweep's frontier in, to resume after a crash.
 
 Stdlib only, at the bottom of the layers: every layer may call it.
 """
 
 from .breaker import CircuitBreaker
+from .checkpoint import CheckpointError, CheckpointStore
 from .failpoints import (
     FailpointError,
     FailpointRegistry,
@@ -23,6 +26,8 @@ from .failpoints import (
 )
 
 __all__ = [
+    "CheckpointError",
+    "CheckpointStore",
     "CircuitBreaker",
     "FailpointError",
     "FailpointRegistry",

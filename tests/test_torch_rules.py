@@ -12,6 +12,13 @@
   serving runtime (`serving/`, `observability/`, `robustness/`, `utils/`)
   reads none either, and its sessions default to the card.
 * The launch counters lose no count when threads launch at once.
+* Heavy hitters (`heavy_hitters/`, and the `capacity/model.py`,
+  `capacity/calibration.py`,
+  `observability/costmodel.py`, `observability/slo.py` and
+  `robustness/checkpoint.py` it brings) load no JAX and read no
+  environment variable; its aggregator, protocol and client have no
+  `try`, and the session's handlers catch only protocol and transport
+  errors; its server, aggregator and client default to the card.
 """
 
 import ast
@@ -57,6 +64,13 @@ SERVING_MODULES = (
     "robustness.breaker", "robustness.failpoints", "utils",
     "utils.profiling",
 )
+# Private heavy hitters and the modules it brings (dotted, under the port).
+HH_MODULES = (
+    "heavy_hitters", "heavy_hitters.aggregator", "heavy_hitters.client",
+    "heavy_hitters.protocol", "heavy_hitters.session", "capacity.model",
+    "capacity.calibration",
+    "observability.costmodel", "observability.slo", "robustness.checkpoint",
+)
 
 
 def _port_modules():
@@ -87,8 +101,8 @@ def test_import_loads_no_jax():
             "distributed_point_functions_tpu_torch.testing.pir_generators",
             "distributed_point_functions_tpu_torch.testing.pir_selection_bits",
             "distributed_point_functions_tpu_torch.testing.request_generator",
-            } | {f"distributed_point_functions_tpu_torch.{m}" for m in SERVING_MODULES
-                 } <= set(_port_modules())
+            } | {f"distributed_point_functions_tpu_torch.{m}"
+                 for m in SERVING_MODULES + HH_MODULES} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
@@ -250,7 +264,9 @@ def test_wrappers_raise_for_other_devices():
      "proto_validator.py", "interop.py", "fss_gates/multiple_interval_containment.py",
      "fss_gates/prng.py", "pir/cuckoo_database.py", "pir/sparse_server.py",
      "pir/sparse_client.py", "hashing/cuckoo_hash_table.py",
-     "hashing/hash_family_config.py", "hashing/sha256_hash_family.py"],
+     "hashing/hash_family_config.py", "hashing/sha256_hash_family.py",
+     "heavy_hitters/aggregator.py", "heavy_hitters/protocol.py",
+     "heavy_hitters/client.py"],
 )
 def test_serving_path_has_no_try(module):
     tree = ast.parse((PORT_DIR / module).read_text())
@@ -324,9 +340,41 @@ def test_sessions_default_device_does_not_fall_back(no_cuda):
                "pir/sparse_server.py", "pir/sparse_client.py", "pir/database.py"]
     # The serving runtime takes its settings from `ServingConfig` and its
     # failpoints from code.
-    + [m.replace(".", "/") + ".py" for m in SERVING_MODULES if "." in m])
+    + [m.replace(".", "/") + ".py" for m in SERVING_MODULES if "." in m]
+    + ["heavy_hitters/__init__.py"]
+    + [m.replace(".", "/") + ".py" for m in HH_MODULES if "." in m])
 def test_host_path_reads_no_environment(module):
     """No environment variable selects the host library's numpy twins or
     anything else on the host side of the main path."""
     text = (PORT_DIR / module).read_text()
     assert "os.environ" not in text and "getenv" not in text
+
+
+def test_hh_session_catches_only_protocol_and_transport_errors():
+    """The sweep's session retries a round or steps its wire version down
+    on protocol and transport errors only: a kernel's error reaches the
+    caller, and nothing gives way to a plain version."""
+    tree = ast.parse((PORT_DIR / "heavy_hitters/session.py").read_text())
+    caught = set()
+    for handler in (n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)):
+        assert handler.type is not None
+        names = handler.type.elts if isinstance(handler.type, ast.Tuple) else [handler.type]
+        caught |= {n.id for n in names}
+    assert caught == {"ProtocolError", "TransportError", "IntegrityError"}
+
+
+def test_hh_default_device_does_not_fall_back(no_cuda):
+    from distributed_point_functions_tpu_torch import heavy_hitters as hh
+
+    config = hh.HeavyHittersConfig(domain_bits=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hh.HeavyHittersClient(config)
+    keys = [hh.HeavyHittersClient(config, device="cpu").generate_report(3)[0]]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hh.HeavyHittersServer(config, keys)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hh.LevelAggregator(config.make_dpf(), keys)
+    cuda_lib.reset_launch_counts()
+    server = hh.HeavyHittersServer(config, keys, device="cpu")
+    server.evaluate_round(0, list(range(16)))
+    assert not any(cuda_lib.LAUNCHES.values()) and server.launches == {}
