@@ -117,7 +117,15 @@ non-zero before printing a result. Phases, one JSON line each:
    request sent after the rotation generation 1's, both stagings a
    delta (`bytes_saved > 0`), generation 0's staging freed and
    `torch.cuda.memory_allocated` back within 2 MiB; staleness ms, bytes
-   staged, saved and freed, mismatch retries.
+   staged, saved and freed, mismatch retries. Then `overload` (
+   `overload_phase`): new sessions over generation 1, the Leader with
+   cost-aware admission calibrated from `serving`'s q/s through a history
+   file, tenants on Leader ports of their own; the saturation just under
+   the admission budget, twice it open loop for 10 s (goodput at least
+   0.70 of it, sheds at admission only with hints and reasons, tenant
+   shares within 15% of 3:1), the brownout ladder's levels with each
+   party's launches against the plan, a recalibration drill; every
+   answer its record's.
 6. The DPF and DCF paths, each run with every launch count set to 0
    just before it and checked just after:
    - `dcf`: `DistributedComparisonFunction.create(32, IntType(64))`,
@@ -258,7 +266,11 @@ non-zero before printing a result. Phases, one JSON line each:
      client built from `get_public_params()` bytes, 128 queries through
      the hybrid-encrypted Helper leg and the one-time pad: every value
      resolves and every absent key is `KeyNotFound`; round-trip ms by
-     step and q/s.
+     step and q/s;
+   - `sparse_serving` (`sparse_serving_phase`): sparse Leader and
+     Helper sessions over TCP on that database and a replica, 64
+     one-lookup clients, then a 4,096-upsert write batch rotated in
+     under traffic as a delta of the touched bucket rows.
    Then private heavy hitters (its own generator), each party's launches
    counted on its own aggregator's stream from just before each run:
    - `hh_small`: the JAX test's 8-bit config and values, and a 24-bit
@@ -1734,6 +1746,370 @@ def sparse_two_party_phase(db, params, value_of, dev, smi_line: str) -> dict:
     return launches
 
 
+# `sparse_serving` (after `sparse_two_party`, on its database): client
+# processes and threads, the closed-loop lookups before and during the
+# rotation, the write batch's overwrites and new keys, present keys'
+# share of the lookups.
+SPARSE_SERVING_PROCESSES = 4
+SPARSE_SERVING_THREADS = 16
+SPARSE_SERVING_REQUESTS = 1024
+SPARSE_SERVING_WAVE = 1024
+SPARSE_UPSERTS = 4096
+SPARSE_PRESENT_SHARE = 0.9
+SPARSE_CHECK_QUERIES = 128  # queries a request of the after-flip check
+
+
+def sparse_serving_client(root: str, conn, port: int, public_params: bytes,
+                          num_keys: int, seed: int, left, done) -> None:
+    """A client process of `sparse_serving` (started with `spawn`; it never
+    touches the card). Per command `(threads, hot, hot_share)` it runs
+    `threads` closed-loop threads, each on its own TCP connection to the
+    Leader, one lookup a request: a key of `hot` with probability
+    `hot_share`, else a present key (`sparse_keys(num_keys)`) with probability
+    `SPARSE_PRESENT_SHARE`, else an absent one; until `left` reaches 0.
+    Sends back [(query, value or None, latency s, request digest, sent)],
+    or the first failure. None ends the process."""
+    import threading
+
+    sys.path.insert(0, root)
+    from distributed_point_functions_tpu_torch import serialization
+    from distributed_point_functions_tpu_torch.pir import CuckooHashingSparseDpfPirClient
+    from distributed_point_functions_tpu_torch.pir.sparse_client import KeyNotFound
+    from distributed_point_functions_tpu_torch.serving import transport
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    client = CuckooHashingSparseDpfPirClient.create_from_public_params(
+        public_params, encrypt_decrypt.encrypt)
+    dpf = client._wrapped_client.dpf
+    wave, socks = 0, {}
+    conn.send("ready")
+    while (cmd := conn.recv()) is not None:
+        threads, hot, hot_share = cmd
+        wave += 1
+        out, errors, lock = [], [], threading.Lock()
+
+        def run(t):
+            rng = np.random.default_rng([seed, wave, t])
+            while not errors:
+                with left.get_lock():
+                    if left.value <= 0:
+                        return
+                    left.value -= 1
+                if hot and rng.random() < hot_share:
+                    q = hot[int(rng.integers(0, len(hot)))]
+                elif rng.random() < SPARSE_PRESENT_SHARE:
+                    q = b"k%012d" % int(rng.integers(0, num_keys))
+                else:
+                    q = b"absent%012d" % int(rng.integers(0, 1 << 40))
+                sent = time.perf_counter()
+                try:
+                    if t not in socks:
+                        socks[t] = socket.create_connection(("127.0.0.1", port))
+                    request, state = client.create_request([q])
+                    wire = serialization.serialize_pir_request(dpf, request)
+                    transport.send_msg(socks[t], wire)
+                    value = client.resolve(serialization.parse_pir_response(
+                        transport.recv_msg(socks[t])), state)[0]
+                except Exception as e:  # noqa: BLE001 - sent to the parent
+                    errors.append(e)
+                    return
+                with lock:
+                    out.append((q, None if isinstance(value, KeyNotFound) else value,
+                                time.perf_counter() - sent, wire_digest(wire), sent))
+                with done.get_lock():
+                    done.value += 1
+
+        pool = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join()
+        conn.send(errors[0] if errors else out)
+    for sock in socks.values():
+        sock.close()
+    conn.close()
+
+
+def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
+    """`sparse_serving` at configs[4]: a `SparseHelperSession` behind a
+    `FramedTcpServer` and a `SparseLeaderSession` reaching it through a
+    `TcpTransportPool`, over `sparse_phase`'s 2^24-key database (the
+    Helper's a `replica` of it, so that each party rotates its own), with
+    admission pricing the "sparse" workload. 64 client threads send
+    one-lookup requests, closed loop, present and absent keys mixed: every
+    present key resolves to its value, every absent key to `KeyNotFound`,
+    each party's launches equal the plans of the batches it formed. Then
+    a write batch (`SPARSE_UPSERTS`: half overwrites, half new keys)
+    through `Builder.build_from(prev)` rotates both parties under a wave
+    that looks the written keys up half the time: the stagings are deltas
+    of the touched bucket rows (`bytes_saved > 0`, bytes staged = rows x
+    (8 + the row's bytes), the dense delta's count), every answer is its key's in
+    the generation its Leader share bound to (the Leader refuses a Helper
+    share of another), every written key reads its new value after the
+    flip, and a database of another geometry is refused with
+    `SnapshotMismatch`. Prints the `sparse_serving` line."""
+    import multiprocessing
+    import threading
+
+    import torch
+
+    from distributed_point_functions_tpu_torch.observability import costmodel
+    from distributed_point_functions_tpu_torch.pir import (
+        CuckooHashedDpfPirDatabase,
+        CuckooHashingSparseDpfPirServer,
+        KeyNotFound,
+    )
+    from distributed_point_functions_tpu_torch.serving import (
+        FramedTcpServer,
+        RotationCoordinator,
+        ServingConfig,
+        SnapshotManager,
+        SnapshotMismatch,
+        SparseHelperSession,
+        SparseLeaderSession,
+        TcpTransportPool,
+        make_sparse_client,
+    )
+    from distributed_point_functions_tpu_torch.serving.service import evaluated_generation
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    t_phase = time.perf_counter()
+    steps = {}
+    hdb = db.replica()
+    hdb.prestage()
+    config = ServingConfig(max_batch_size=128, max_wait_ms=2.0, request_timeout_ms=60_000.0,
+                           admission_enabled=True, admission_queue_budget_ms=1e9)
+    helper = SparseHelperSession(params, hdb, encrypt_decrypt.decrypt, config, device=dev)
+    helper_tcp = FramedTcpServer(helper.handle_wire, host="127.0.0.1", name="helper").start()
+    leader = SparseLeaderSession(
+        params, db, TcpTransportPool("127.0.0.1", helper_tcp.port,
+                                     SPARSE_SERVING_PROCESSES * SPARSE_SERVING_THREADS),
+        config, device=dev)
+    bound = {}
+
+    def leader_wire(data):
+        reply = leader.handle_wire(data)
+        bound[wire_digest(data)] = evaluated_generation()
+        return reply
+
+    leader_tcp = FramedTcpServer(leader_wire, host="127.0.0.1", name="leader").start()
+    ctx = multiprocessing.get_context("spawn")
+    left, done = ctx.Value("i", 0), ctx.Value("i", 0)
+    procs, pipes = [], []
+    root = str(Path(__file__).resolve().parent)
+    public = leader.server.get_public_params()
+    for k in range(SPARSE_SERVING_PROCESSES):
+        parent_end, child_end = ctx.Pipe()
+        proc = ctx.Process(target=sparse_serving_client, daemon=True, args=(
+            root, child_end, leader_tcp.port, public, SPARSE_KEYS, SEED + 60 + k, left,
+            done))
+        proc.start()
+        procs.append(proc)
+        pipes.append(parent_end)
+    # The write batch and both parties' generation 1 while the clients start.
+    t0 = time.perf_counter()
+    wrng = np.random.default_rng(SEED + 61)
+    upserts = {b"k%012d" % int(i): wrng.bytes(SPARSE_VALUE_BYTES)
+               for i in wrng.choice(SPARSE_KEYS, SPARSE_UPSERTS // 2, replace=False)}
+    upserts.update({b"n%012d" % i: wrng.bytes(SPARSE_VALUE_BYTES)
+                    for i in range(SPARSE_UPSERTS // 2)})
+    builder = CuckooHashedDpfPirDatabase.Builder()
+    for kv in upserts.items():
+        builder.insert(kv)
+    gen1 = []
+    for base in (db, hdb):
+        t1 = time.perf_counter()
+        gen1.append(builder.build_from(base))
+        steps.setdefault("build_from_s", []).append(time.perf_counter() - t1)
+    if not np.array_equal(gen1[0].slot_index, gen1[1].slot_index):
+        raise AssertionError("sparse_serving: the parties' generation 1 layouts differ")
+    rows = len(gen1[0].dense_database._delta_rows)
+    row_bytes = 4 * db.dense_database.staged().shape[2]
+    steps["write_batch_s"] = time.perf_counter() - t0
+    for pipe in pipes:
+        if pipe.recv() != "ready":
+            raise AssertionError("sparse_serving: a client process did not start")
+
+    def closed_loop(total, hot=(), hot_share=0.0):
+        left.value = total
+        done.value = 0
+        for pipe in pipes:
+            pipe.send((SPARSE_SERVING_THREADS, list(hot), hot_share))
+        out = []
+        for pipe in pipes:
+            got = pipe.recv()
+            if isinstance(got, Exception):
+                raise got
+            out += got
+        if len(out) != total:
+            raise AssertionError(f"sparse_serving: {len(out)} answers of {total}")
+        return out
+
+    def check(q, value, generation):
+        want = upserts.get(q) if generation == 1 and q in upserts else value_of(q)
+        if want is None:
+            if value is not None:
+                raise AssertionError(f"sparse_serving: absent key {q!r} gave {value!r}")
+        elif value != want + bytes(db.value_size - len(want)):
+            raise AssertionError(f"sparse_serving: key {q!r} is not its generation "
+                                 f"{generation} value")
+
+    def batches():
+        out = {}
+        for name, session in (("leader", leader), ("helper", helper)):
+            counters = session.metrics.export()["counters"]
+            prefix = f"{name}.batcher.bucket_batches{{bucket="
+            out[name] = {int(k[len(prefix):-1]): v for k, v in counters.items()
+                         if k.startswith(prefix)}
+        return out
+
+    t0 = time.perf_counter()
+    closed_loop(2 * SPARSE_SERVING_PROCESSES * SPARSE_SERVING_THREADS)  # warm-up
+    torch.cuda.synchronize()
+    steps["warmup_s"] = time.perf_counter() - t0
+    parties = (("leader", leader), ("helper", helper))
+    before, own_before = batches(), {p: s.launches for p, s in parties}
+    t0 = time.perf_counter()
+    out = closed_loop(SPARSE_SERVING_REQUESTS)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = batches()
+    steps["closed_loop_s"] = wall_s
+    launches = {}
+    for party, session in parties:
+        formed = {b: n - before[party].get(b, 0) for b, n in after[party].items()
+                  if n - before[party].get(b, 0)}
+        want = {}
+        for b, n in formed.items():
+            plan = session.server.dense_server._plan_serving(b)
+            for name, c in tier_launches(plan, session.server.dense_server.expansion,
+                                         -(-b // 32)).items():
+                want[name] = want.get(name, 0) + n * c // 2
+        own = session.launches
+        got = {name: c - own_before[party].get(name, 0) for name, c in own.items()
+               if c - own_before[party].get(name, 0)}
+        if got != want:
+            raise AssertionError(f"sparse_serving: {party} launched {got}, its plans {want}")
+        launches[party] = {"launches": got, "batches_by_bucket": formed}
+    found = 0
+    for q, value, _, digest, _ in out:
+        check(q, value, bound.pop(digest))
+        found += value is not None
+    lat = sorted(x[2] * 1e3 for x in out)
+
+    # The rotation under traffic.
+    t_rot = time.perf_counter()
+    managers = SnapshotManager(leader), SnapshotManager(helper)
+    torch.cuda.synchronize()
+    report, flipped = {}, [None]
+
+    def rotate():
+        while done.value < SPARSE_SERVING_WAVE // 4:
+            time.sleep(0.001)
+        report.update(RotationCoordinator(*managers).rotate(*gen1))
+        flipped[0] = time.perf_counter()
+
+    done.value = 0  # the rotation waits for this wave's answers
+    rotator = threading.Thread(target=rotate)
+    rotator.start()
+    wave = closed_loop(SPARSE_SERVING_WAVE, hot=list(upserts), hot_share=0.5)
+    rotator.join()
+    if flipped[0] is None:
+        raise AssertionError("sparse_serving: the rotation did not finish")
+    counts, after_flip = {0: 0, 1: 0}, 0
+    for q, value, _, digest, sent in wave:
+        generation = bound.pop(digest)
+        if generation not in counts:
+            raise AssertionError(f"sparse_serving: {q!r} bound to {generation}")
+        counts[generation] += 1
+        check(q, value, generation)
+        if sent > flipped[0]:
+            after_flip += 1
+            if generation != 1:
+                raise AssertionError(f"sparse_serving: {q!r} sent after the flip "
+                                     f"answered from generation {generation}")
+    if not counts[0] or not after_flip:
+        raise AssertionError(f"sparse_serving: the wave did not span the rotation "
+                             f"({counts}, {after_flip} sent after it)")
+    stages = {p: m.export() for p, m in zip(("leader", "helper"), managers)}
+    for party, state in stages.items():
+        stage = state["last_stage"]
+        if (stage["mode"] != "delta" or stage["bytes_saved"] <= 0
+                or stage["bytes_staged"] != rows * (8 + row_bytes)):
+            raise AssertionError(f"sparse_serving: {party} staged {stage}, "
+                                 f"{rows} touched rows of {row_bytes} B")
+        if [d["generation"] for d in state["drains"]] != [0]:
+            raise AssertionError(f"sparse_serving: {party} drains {state['drains']}")
+    if db.staged_bytes() or hdb.staged_bytes():
+        raise AssertionError("sparse_serving: generation 0 still holds its staging")
+    steps["rotation_s"] = time.perf_counter() - t_rot
+    # Every written key reads its new value.
+    t0 = time.perf_counter()
+    client = make_sparse_client(leader, encrypt_decrypt.encrypt)
+    written = list(upserts)
+    for k in range(0, len(written), SPARSE_CHECK_QUERIES):
+        queries = written[k:k + SPARSE_CHECK_QUERIES]
+        request, state = client.create_request(queries)
+        for q, value in zip(queries, client.resolve(leader.handle_request(request), state)):
+            if isinstance(value, KeyNotFound):
+                value = None
+            check(q, value, 1)
+    steps["written_check_s"] = time.perf_counter() - t0
+    # Another geometry is refused before anything stages.
+    small = CuckooHashedDpfPirDatabase.Builder().set_params(
+        CuckooHashingSparseDpfPirServer.generate_params(1000, seed=SPARSE_SEED))
+    for i in range(1000):
+        small.insert((b"k%012d" % i, bytes(SPARSE_VALUE_BYTES)))
+    try:
+        managers[0].stage(small.set_generation(2).build(device=dev))
+    except SnapshotMismatch as e:
+        refused = str(e)
+    else:
+        raise AssertionError("sparse_serving: a database of another geometry was staged")
+    cost = leader.admission.admit(3)
+    leader.admission.release(cost.cost)
+    cells = sorted(c for c in costmodel.default_cost_ledger().export()["cells"]
+                   if c.startswith("sparse/"))
+    if cost.cost.unit != "sparse_keys" or not cells:
+        raise AssertionError(f"sparse_serving: admission priced {cost.cost}, cells {cells}")
+    for pipe in pipes:
+        pipe.send(None)
+    for proc in procs:
+        proc.join(timeout=30)
+        if proc.exitcode != 0:
+            raise AssertionError(f"sparse_serving: a client process exited {proc.exitcode}")
+    counters = leader.metrics.export()["counters"]
+    emit({"phase": "sparse_serving", "config": "BASELINE.json configs[4], one card",
+          "keys": SPARSE_KEYS, "value_bytes": SPARSE_VALUE_BYTES,
+          "client_processes": SPARSE_SERVING_PROCESSES,
+          "client_threads": SPARSE_SERVING_THREADS, "lookups_a_request": 1,
+          "requests": SPARSE_SERVING_REQUESTS, "present_found": found,
+          "absent": len(out) - found, "queries_per_sec": SPARSE_SERVING_REQUESTS / wall_s,
+          "p50_ms": lat[len(lat) // 2], "p99_ms": lat[int(len(lat) * 0.99)],
+          "by_party": launches,
+          "write_batch": {"upserts": SPARSE_UPSERTS, "new_keys": SPARSE_UPSERTS // 2,
+                          "touched_rows": rows, "row_bytes": row_bytes,
+                          "size_after": gen1[0].size},
+          "wave_requests": SPARSE_SERVING_WAVE, "answers_by_generation": counts,
+          "answers_sent_after_flip": after_flip,
+          "staleness_ms": report["staleness_ms"],
+          "bytes_staged": {p: s["last_stage"]["bytes_staged"] for p, s in stages.items()},
+          "bytes_saved": {p: s["last_stage"]["bytes_saved"] for p, s in stages.items()},
+          "bytes_full_image": stages["leader"]["last_stage"]["bytes_full_image"],
+          "bytes_freed": {p: s["drains"][0]["bytes_freed"] for p, s in stages.items()},
+          "mismatch_retries": counters.get("leader.snapshot_retries", 0),
+          "snapshot_mismatches": counters.get("leader.snapshot_mismatches", 0),
+          "written_keys_checked": len(written), "geometry_refused": refused[:160],
+          "admission_unit": cost.cost.unit, "admission_price_ms_3_keys": cost.cost.device_ms,
+          "ledger_sparse_cells": cells, "steps_s": steps,
+          "phase_s": time.perf_counter() - t_phase, "device": smi_line})
+    leader_tcp.stop()
+    helper_tcp.stop()
+    leader.close()
+    helper.close()
+    del gen1
+
+
 def stage_keys_numpy(dense_eval, keys, walk_levels):
     """`dense_eval.stage_keys_host` with the numpy walk (the plain version)
     in place of the native one: the staging figure of the trees before the
@@ -1898,6 +2274,21 @@ SERVING_ROTATION_REQUESTS = 1024
 SERVING_SEQUENTIAL = 256
 SERVING_UPDATES = 64
 SERVING_TRACED = 128
+# `overload` (after `serving_rotation`, on its databases): the admission
+# budget, the requests' deadline, the saturation run's requests, the 2x
+# open-loop run, the tenants' weights, the workload's Zipf exponent, the
+# brownout ladder's batch cap, the recalibration drill's misprice.
+OVERLOAD_BUDGET_MS = 300.0
+OVERLOAD_DEADLINE_MS = 1000.0
+OVERLOAD_SATURATION_REQUESTS = 512
+OVERLOAD_TRACED = 128
+OVERLOAD_SECONDS = 10.0
+OVERLOAD_SENDERS = 24  # sender threads a client process
+OVERLOAD_WEIGHTS = {"gold": 3.0, "bronze": 1.0}
+OVERLOAD_ZIPF = 1.1
+OVERLOAD_ZIPF_SEED = 7
+OVERLOAD_BATCH_CAP = 8
+OVERLOAD_MISPRICE = 2.0
 
 
 def merged_busy_ms(intervals) -> float:
@@ -1923,13 +2314,15 @@ def wire_digest(data: bytes) -> bytes:
 def serving_client(root: str, conn, port: int, num_records: int, seed: int,
                    left, done) -> None:
     """A client process of the serving phase (started with `spawn`; it
-    never touches the card). Per command `(threads, hot, hot_share)` from
-    the pipe it runs `threads` closed-loop threads, each on its own TCP
-    connection to the Leader, one query a request (record `hot[k]` with
-    probability `hot_share`, else uniform), until the shared count `left`
-    reaches 0, adding each answer to `done`; then it sends back
-    [(index, answer, latency s, request digest, perf_counter at send)]. A
-    failed request is sent back as its exception. None ends the process."""
+    never touches the card). Per command `(threads, hot, hot_share[,
+    port])` from the pipe it runs `threads` closed-loop threads, each on
+    its own TCP connection to the Leader (at `port`, else the process's),
+    one query a request (record `hot[k]` with probability `hot_share`,
+    else uniform), until the shared count `left` reaches 0, adding each
+    answer to `done`; then it sends back [(index, answer, latency s,
+    request digest, perf_counter at send)]. A failed request is sent back
+    as its exception. A dict command runs `open_loop_wave` instead and
+    sends back its records. None ends the process."""
     import threading
 
     sys.path.insert(0, root)
@@ -1940,11 +2333,15 @@ def serving_client(root: str, conn, port: int, num_records: int, seed: int,
 
     client = DenseDpfPirClient.create(num_records, encrypt_decrypt.encrypt)
     wave = 0
-    socks = {}  # thread index -> its connection, kept across waves
+    socks = {}  # (thread index, port) -> its connection, kept across waves
     conn.send("ready")
     while (cmd := conn.recv()) is not None:
-        threads, hot, hot_share = cmd
         wave += 1
+        if isinstance(cmd, dict):
+            conn.send(open_loop_wave(client, cmd, np.random.default_rng([seed, wave])))
+            continue
+        threads, hot, hot_share = cmd[:3]
+        to = cmd[3] if len(cmd) > 3 else port
         out, errors, lock = [], [], threading.Lock()
 
         def run(t):
@@ -1959,12 +2356,13 @@ def serving_client(root: str, conn, port: int, num_records: int, seed: int,
                      else int(rng.integers(0, num_records)))
                 sent = time.perf_counter()
                 try:
-                    if t not in socks:
-                        socks[t] = socket.create_connection(("127.0.0.1", port))
+                    if (t, to) not in socks:
+                        socks[t, to] = socket.create_connection(("127.0.0.1", to))
                     request, state = client.create_request([i])
                     wire = serialization.serialize_pir_request(client.dpf, request)
-                    transport.send_msg(socks[t], wire)
-                    response = serialization.parse_pir_response(transport.recv_msg(socks[t]))
+                    transport.send_msg(socks[t, to], wire)
+                    response = serialization.parse_pir_response(
+                        transport.recv_msg(socks[t, to]))
                     answer = client.handle_response(response, state)[0]
                 except Exception as e:  # noqa: BLE001 - sent to the parent
                     errors.append(e)
@@ -1984,6 +2382,101 @@ def serving_client(root: str, conn, port: int, num_records: int, seed: int,
     for sock in socks.values():
         sock.close()
     conn.close()
+
+
+def zipf_indices(rng, n: int, num_records: int, exponent: float = OVERLOAD_ZIPF):
+    """`n` record indices drawn with P(rank r) proportional to r^-exponent,
+    ranks mapped to records by a fixed permutation (a Zipfian population
+    whose hot records are spread over the database)."""
+    cdf = np.cumsum(np.arange(1, num_records + 1, dtype=np.float64) ** -exponent)
+    ranks = np.searchsorted(cdf, rng.random(n) * cdf[-1])
+    return np.random.default_rng(OVERLOAD_ZIPF_SEED).permutation(num_records)[ranks]
+
+
+def open_loop_wave(client, cmd: dict, rng) -> dict:
+    """One open-loop wave of a client process: requests of one query
+    arrive at `cmd["rate"]` a second for `cmd["duration_s"]`, each to a
+    tenant drawn from `cmd["tenants"]` (its Leader port) and for a Zipfian
+    record (`zipf_indices`), whatever the answers do; `cmd["threads"]`
+    threads send them, each with its own connection a port, in a trace
+    envelope so that a shed comes back typed. The process honors a shed's
+    retry hint as the JAX package's overload test's clients do (at most
+    50 ms): the tenant's arrivals within it are not sent, and are counted
+    as deferred. Returns {"records": [(tenant, index, answer or None, shed
+    (retry_after_s, message) or None, error text or None, latency s from
+    the scheduled arrival, send lag s)], "deferred": {tenant: n}}."""
+    import queue
+    import threading
+
+    from distributed_point_functions_tpu_torch import serialization
+    from distributed_point_functions_tpu_torch.observability import propagation
+    from distributed_point_functions_tpu_torch.serving import transport
+
+    tenants = sorted(cmd["tenants"])
+    n = int(cmd["rate"] * cmd["duration_s"])
+    picks = rng.integers(0, len(tenants), n)
+    indices = zipf_indices(rng, n, cmd["num_records"])
+    arrivals: "queue.Queue" = queue.Queue()
+    out, lock = [], threading.Lock()
+    backoff = {t: 0.0 for t in tenants}  # perf_counter until which a tenant waits
+    deferred = {t: 0 for t in tenants}
+
+    def send(t):
+        socks = {}
+        while (item := arrivals.get()) is not None:
+            t_sched, tenant, i = item
+            lag = time.perf_counter() - t_sched
+            answer = shed = error = None
+            try:
+                sock = socks.get(tenant)
+                if sock is None:
+                    sock = socks[tenant] = socket.create_connection(
+                        ("127.0.0.1", cmd["tenants"][tenant]))
+                request, state = client.create_request([i])
+                wire = serialization.serialize_pir_request(client.dpf, request)
+                transport.send_msg(sock, propagation.encode_request(
+                    f"{t:04x}{i:012x}", wire, version=1))
+                reply = transport.recv_msg(sock)
+                try:
+                    _, inner = propagation.try_decode_response(reply)
+                    answer = client.handle_response(
+                        serialization.parse_pir_response(inner), state)[0]
+                except propagation.WireErrorResponse as e:
+                    shed = (e.retry_after_s, str(e))
+                    with lock:
+                        backoff[tenant] = max(backoff[tenant], time.perf_counter()
+                                              + min(e.retry_after_s, 0.05))
+            except Exception as e:  # noqa: BLE001 - sent to the parent
+                error = f"{type(e).__name__}: {e}"
+                sock = socks.pop(tenant, None)
+                if sock is not None:
+                    sock.close()
+            with lock:
+                out.append((tenant, int(i), answer, shed, error,
+                            time.perf_counter() - t_sched, lag))
+        for sock in socks.values():
+            sock.close()
+
+    pool = [threading.Thread(target=send, args=(t,)) for t in range(cmd["threads"])]
+    for th in pool:
+        th.start()
+    t0 = time.perf_counter() + 0.05
+    for k in range(n):
+        t_sched = t0 + k / cmd["rate"]
+        delay = t_sched - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        tenant = tenants[int(picks[k])]
+        with lock:
+            wait = time.perf_counter() < backoff[tenant]
+            deferred[tenant] += wait
+        if not wait:
+            arrivals.put((t_sched, tenant, int(indices[k])))
+    for _ in pool:
+        arrivals.put(None)
+    for th in pool:
+        th.join()
+    return {"records": out, "deferred": deferred}
 
 
 def walk_selections_plain(staged, expand_levels: int, num_blocks: int):
@@ -2138,13 +2631,15 @@ def serving_phase(dev, records, smi_line: str) -> None:
     steps["clients_ready_s"] = time.perf_counter() - t0
 
     def closed_loop(total, hot=(), hot_share=0.0, processes=SERVING_PROCESSES,
-                    threads=SERVING_THREADS):
-        """`total` requests from `processes` x `threads` clients; returns
-        [(index, answer, latency s, request digest, sent)]."""
+                    threads=SERVING_THREADS, port=None):
+        """`total` requests from `processes` x `threads` clients (to the
+        Leader at `port`, else the first); returns [(index, answer,
+        latency s, request digest, sent)]."""
         left.value = total
         done.value = 0
         for pipe in pipes[:processes]:
-            pipe.send((threads, list(hot), hot_share))
+            pipe.send((threads, list(hot), hot_share)
+                      + (() if port is None else (port,)))
         out = []
         for pipe in pipes[:processes]:
             got = pipe.recv()
@@ -2328,12 +2823,6 @@ def serving_phase(dev, records, smi_line: str) -> None:
         raise AssertionError(
             f"serving_rotation: memory_allocated {mem_after} after the drain, "
             f"{mem_before} before the rotation")
-    for pipe in pipes:
-        pipe.send(None)
-    for proc in procs:
-        proc.join(timeout=30)
-        if proc.exitcode != 0:
-            raise AssertionError(f"serving: a client process exited {proc.exitcode}")
     counters = leader.metrics.export()["counters"]
     emit({"phase": "serving_rotation", "updated_rows": SERVING_UPDATES,
           "requests": SERVING_ROTATION_REQUESTS, "answers_by_generation": counts,
@@ -2353,6 +2842,409 @@ def serving_phase(dev, records, smi_line: str) -> None:
     helper_tcp.stop()
     leader.close()
     helper.close()
+    overload_phase(dev, leader.server.database, helper.server.database,
+                   lambda i: gen1.get(i, records[i]), closed_loop, pipes,
+                   SERVING_REQUESTS / wall_s, smi_line)
+    for pipe in pipes:
+        pipe.send(None)
+    for proc in procs:
+        proc.join(timeout=30)
+        if proc.exitcode != 0:
+            raise AssertionError(f"serving: a client process exited {proc.exitcode}")
+
+
+def shed_reason(message: str):
+    """The admission reason in an `Overloaded` message ("... shed at
+    admission (quota); ...") that crossed the wire, or None."""
+    import re
+
+    m = re.search(r"shed at admission \((\w+)\)", message)
+    return m.group(1) if m else None
+
+
+def overload_phase(dev, ldb, hdb, current, closed_loop, pipes, serving_qps: float,
+                   smi_line: str) -> None:
+    """`overload` at configs[1]: new Leader and Helper sessions over the
+    `serving` phase's databases (generation 1), the Leader with cost-aware
+    admission priced by a model calibrated from that phase's closed-loop
+    q/s through a history file, then from step 1's saturation (the
+    file's newest record), and tenants on Leader ports of their own
+    (the wire carries no tenant): `default` (priority 1), `gold` (weight
+    3, priority 2) and `bronze` (weight 1, priority 1), each with a quota
+    of its weight's share of the saturation, and `batch` (priority 0).
+    1. Saturation: closed-loop clients, as many as keep the queue's
+       priced cost just under the admission budget; q/s, then a traced run
+       (the union of kernel intervals: the idle share) beside the
+       utilization tracker's duty cycle and bubbles over the same run.
+    2. Twice the saturation, open loop, for `OVERLOAD_SECONDS`, half to
+       gold and half to bronze, a 1 s deadline: goodput at least 0.70 of
+       the saturation; sheds > 0, each with a hint and a reason; nothing
+       expired in a batch; completed keys per tenant within 15% of 3:1.
+    3. The brownout ladder, `force_level` 1, 2, 3, 4, 0, with requests of
+       priorities 0, 1 and 2 at each: the floor sheds (reason
+       `priority`), level 2 forms no batch above the cap under a burst,
+       level 3's launches of each party equal the streaming plan, level 0
+       restores the tier, the cap and the floor.
+    4. Recalibration: a model of this run's own bucket-8 device ms,
+       mispriced 2x by its constructor, learns a factor toward 0.5 (clamp
+       0.25-4) from the ledger's windows of 16 batches: within 0.15 of
+       the factor that makes its price the drill's own measured ms (0.5
+       while the batches take what they took in the calibration);
+       `set_enabled(False)` gives the raw price back.
+    Every answer must equal its record. Prints the `overload` line."""
+    import torch
+
+    from distributed_point_functions_tpu_torch import serialization
+    from distributed_point_functions_tpu_torch.capacity import (
+        BrownoutController,
+        CapacityModel,
+        Recalibrator,
+        TenantPolicy,
+        ThroughputCalibration,
+        set_default_capacity_model,
+    )
+    from distributed_point_functions_tpu_torch.observability import costmodel, propagation
+    from distributed_point_functions_tpu_torch.observability.utilization import (
+        default_utilization_tracker,
+    )
+    from distributed_point_functions_tpu_torch.observability.workload import (
+        WorkloadObservatory,
+    )
+    from distributed_point_functions_tpu_torch.pir import DenseDpfPirClient
+    from distributed_point_functions_tpu_torch.pir import server as server_mod
+    from distributed_point_functions_tpu_torch.serving import (
+        FramedTcpServer,
+        HelperSession,
+        LeaderSession,
+        ServingConfig,
+        TcpTransportPool,
+        transport,
+    )
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    t_phase = time.perf_counter()
+    steps = {}
+    tmp = tempfile.mkdtemp(prefix="dpf_overload_")
+    history = Path(tmp) / "history.jsonl"
+    history.write_text(json.dumps({"metric": "serving_closed_loop_queries_per_sec",
+                                   "value": serving_qps, "status": "ok"}) + "\n")
+    model = CapacityModel(calibration=ThroughputCalibration(str(history)))
+    previous_model = set_default_capacity_model(model)
+    price_ms = model.price_pir_keys(1).device_ms
+    config = ServingConfig(max_batch_size=128, max_wait_ms=2.0,
+                           request_timeout_ms=OVERLOAD_DEADLINE_MS)
+    helper = HelperSession(hdb, encrypt_decrypt.decrypt, config=config, device=dev)
+    helper_tcp = FramedTcpServer(helper.handle_wire, host="127.0.0.1",
+                                 name="helper").start()
+    leader = LeaderSession(
+        ldb, TcpTransportPool("127.0.0.1", helper_tcp.port, 2 * SERVING_PROCESSES
+                              * max(SERVING_THREADS, OVERLOAD_SENDERS)),
+        config=dataclasses.replace(config, admission_enabled=True,
+                                   admission_queue_budget_ms=OVERLOAD_BUDGET_MS),
+        device=dev)
+    tracker = default_utilization_tracker()
+    observatory = leader.attach_workload(WorkloadObservatory())
+    front_door = WorkloadObservatory(name="front_door")
+    ports, servers = {}, []
+    for tenant in ("default", "gold", "bronze", "batch"):
+        tcp = FramedTcpServer(lambda data, tenant=tenant: leader.handle_wire(data, tenant),
+                              host="127.0.0.1", name=f"leader-{tenant}").start()
+        ports[tenant] = tcp.port
+        servers.append(tcp)
+    leader.set_tenant("batch", TenantPolicy(priority=0))
+
+    def wrong(out):
+        return [i for i, answer, *_ in out if answer != current(i)]
+
+    def counters():
+        return leader.metrics.export()["counters"]
+
+    # 1. Saturation just under the budget.
+    threads = max(1, int(0.8 * OVERLOAD_BUDGET_MS / price_ms) // SERVING_PROCESSES)
+    closed_loop(2 * SERVING_PROCESSES * threads, threads=threads, port=ports["default"])
+    tracker.reset()
+    before = counters()
+    t0 = time.perf_counter()
+    sat = closed_loop(OVERLOAD_SATURATION_REQUESTS, threads=threads, port=ports["default"])
+    sat_s = time.perf_counter() - t0
+    sat_util = tracker.export()
+    saturation = OVERLOAD_SATURATION_REQUESTS / sat_s
+    sat_shed = counters().get("leader.batcher.requests_shed", 0) - before.get(
+        "leader.batcher.requests_shed", 0)
+    if wrong(sat):
+        raise AssertionError(f"overload: {len(wrong(sat))} saturation answers differ")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        closed_loop(OVERLOAD_TRACED, threads=threads, port=ports["default"])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = merged_busy_ms(kernels) if kernels else None
+    steps["saturation_s"] = time.perf_counter() - t0
+    # The saturation is this run's newest clean record: admission prices
+    # the rest of the phase at the rate these sessions sustain.
+    with history.open("a") as f:
+        f.write(json.dumps({"metric": "serving_closed_loop_queries_per_sec",
+                            "value": saturation, "status": "ok"}) + "\n")
+    model = CapacityModel(calibration=ThroughputCalibration(str(history)))
+    leader.admission.model = model
+    set_default_capacity_model(model)
+
+    # 2. Twice the saturation, open loop, two tenants backlogged.
+    for tenant, weight in OVERLOAD_WEIGHTS.items():
+        rate = saturation * weight / sum(OVERLOAD_WEIGHTS.values())
+        leader.set_tenant(tenant, TenantPolicy(weight=weight, priority=2 if weight > 1 else 1,
+                                               rate_qps=rate, burst=max(4.0, 0.25 * rate)))
+    tracker.reset()
+    before = counters()
+    t0 = time.perf_counter()
+    for pipe in pipes:
+        pipe.send({"rate": 2 * saturation / len(pipes), "duration_s": OVERLOAD_SECONDS,
+                   "threads": OVERLOAD_SENDERS, "num_records": NUM_RECORDS,
+                   "tenants": {t: ports[t] for t in OVERLOAD_WEIGHTS}})
+    waves = [pipe.recv() for pipe in pipes]
+    records = [r for w in waves for r in w["records"]]
+    deferred = {t: sum(w["deferred"][t] for w in waves) for t in OVERLOAD_WEIGHTS}
+    over_s = time.perf_counter() - t0
+    over_util = tracker.export()
+    after = counters()
+    delta = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    steps["overload_s"] = over_s
+    answered = [r for r in records if r[2] is not None]
+    sheds = [r for r in records if r[3] is not None]
+    errors = [r for r in records if r[4] is not None]
+    bad = [r for r in answered if r[2] != current(r[1])]
+    if bad:
+        raise AssertionError(f"overload: {len(bad)} answers under overload differ")
+    in_deadline = [r for r in answered if r[5] <= OVERLOAD_DEADLINE_MS / 1e3]
+    goodput = len(in_deadline) / OVERLOAD_SECONDS
+    reasons = {}
+    for r in sheds:
+        reason = shed_reason(r[3][1])
+        if r[3][0] <= 0 or reason is None:
+            raise AssertionError(f"overload: a shed without a hint or a reason: {r[3]}")
+        reasons[reason] = reasons.get(reason, 0) + 1
+    keys = {t: sum(1 for r in answered if r[0] == t) for t in OVERLOAD_WEIGHTS}
+    shares = {t: keys[t] / max(1, sum(keys.values())) for t in keys}
+    for r in records:
+        front_door.observe(num_keys=1, tenant=r[0], key_indices=[r[1]])
+    # Step 2's gates, raised after the line is printed.
+    failures = []
+    if goodput < 0.70 * saturation:
+        failures.append(f"goodput {goodput:.1f} q/s below 0.70 x the saturation "
+                        f"{saturation:.1f}")
+    if not sheds:
+        failures.append("twice the saturation shed nothing")
+    if delta.get("leader.batcher.expired_in_batch", 0):
+        failures.append(f"{delta['leader.batcher.expired_in_batch']} requests expired "
+                        "in a batch")
+    for t, w in OVERLOAD_WEIGHTS.items():
+        want = w / sum(OVERLOAD_WEIGHTS.values())
+        if abs(shares[t] - want) > 0.15 * want:
+            failures.append(f"tenant {t} completed {shares[t]:.3f} of the keys, its "
+                            f"weight's share is {want:.3f} ({keys})")
+    lat = sorted(r[5] * 1e3 for r in answered)
+
+    # 3. The brownout ladder.
+    t0 = time.perf_counter()
+    client = DenseDpfPirClient.create(NUM_RECORDS, encrypt_decrypt.encrypt)
+    socks = {}
+    rng = np.random.default_rng(SEED + 42)
+
+    def ask(tenant, queries=1):
+        """One enveloped request of `queries` queries from the parent:
+        (answers, None) or (None, shed reason)."""
+        idx = [int(i) for i in rng.integers(0, NUM_RECORDS, queries)]
+        if tenant not in socks:
+            socks[tenant] = socket.create_connection(("127.0.0.1", ports[tenant]))
+        request, state = client.create_request(idx)
+        transport.send_msg(socks[tenant], propagation.encode_request(
+            "%016x" % int(rng.integers(0, 1 << 62)),
+            serialization.serialize_pir_request(client.dpf, request), version=1))
+        try:
+            _, inner = propagation.try_decode_response(transport.recv_msg(socks[tenant]))
+        except propagation.WireErrorResponse as e:
+            if e.retry_after_s <= 0:
+                raise AssertionError(f"overload: a shed without a hint: {e}")
+            return None, shed_reason(str(e))
+        answers = client.handle_response(serialization.parse_pir_response(inner), state)
+        if answers != [current(i) for i in idx]:
+            raise AssertionError(f"overload: an answer to {tenant} differs from its record")
+        return answers, None
+
+    for tenant in OVERLOAD_WEIGHTS:  # the ladder's requests are not quota's
+        leader.set_tenant(tenant, TenantPolicy(weight=OVERLOAD_WEIGHTS[tenant],
+                                               priority=2 if tenant == "gold" else 1))
+    ladder = leader.attach_brownout(BrownoutController(signal=lambda: False),
+                                    batch_cap=OVERLOAD_BATCH_CAP, cheap_tier="streaming")
+    parties = (("leader", leader), ("helper", helper))
+    served = {"batch": 0, "bronze": 1, "gold": 2}
+    ladder_log = []
+    for level in (1, 2, 3, 4, 0):
+        ladder.force_level(level)
+        floor = {0: 0, 1: 1, 2: 1, 3: 1, 4: 2}[level]
+        own = {p: s.launches for p, s in parties}
+        n_served = 0
+        for tenant, priority in served.items():
+            got, reason = ask(tenant)
+            if (got is None) != (priority < floor) or (got is None and reason != "priority"):
+                raise AssertionError(f"overload: level {level}, {tenant} (priority "
+                                     f"{priority}) gave {got!r} / {reason}")
+            n_served += got is not None
+        entry = {"level": level, "served": n_served,
+                 "min_priority": leader.admission.min_priority,
+                 "batch_cap": leader.batcher.batch_cap, "tier_floor": server_mod.tier_floor()}
+        plan = leader.server._plan_serving(1)
+        want = {n: n_served * c // 2 for n, c in tier_launches(
+            plan, leader.server.expansion, 1).items()}
+        for party, session in parties:
+            got = {n: c - own[party].get(n, 0) for n, c in session.launches.items()
+                   if c - own[party].get(n, 0)}
+            if got != want:
+                raise AssertionError(f"overload: level {level}, {party} launched {got}, "
+                                     f"the {plan.mode} plan {want}")
+        entry["plan"] = plan.mode
+        entry["launches_a_party"] = want
+        if level == 2:
+            prefix = "leader.batcher.bucket_batches{bucket="
+            b0 = {k: v for k, v in counters().items() if k.startswith(prefix)}
+            # As many clients as keep the queue's priced cost under the
+            # budget at the recalibrated price.
+            burst_threads = max(1, int(0.8 * OVERLOAD_BUDGET_MS / model.price_pir_keys(
+                1).device_ms) // SERVING_PROCESSES)
+            burst = closed_loop(SERVING_PROCESSES * burst_threads * 4,
+                                threads=burst_threads, port=ports["default"])
+            if wrong(burst):
+                raise AssertionError("overload: a level-2 answer differs from its record")
+            formed = {int(k[len(prefix):-1]): v - b0.get(k, 0)
+                      for k, v in counters().items()
+                      if k.startswith(prefix) and v - b0.get(k, 0)}
+            if max(formed) > OVERLOAD_BATCH_CAP:
+                raise AssertionError(f"overload: level 2 formed batches {formed}")
+            entry["burst_batches_by_bucket"] = formed
+        if level == 3 and (plan.mode != "streaming" or server_mod.tier_floor() != "streaming"):
+            raise AssertionError(f"overload: level 3 planned {plan.mode}")
+        ladder_log.append(entry)
+    if (leader.admission.min_priority, leader.batcher.batch_cap, server_mod.tier_floor()) != (
+            0, None, "materialized") or leader.server._plan_serving(1).mode != "materialized":
+        raise AssertionError("overload: level 0 did not restore every knob")
+    steps["ladder_s"] = time.perf_counter() - t0
+
+    # 4. Recalibration of a mispriced model on this run's device ms.
+    t0 = time.perf_counter()
+    previous_ledger = costmodel.set_default_cost_ledger(costmodel.CostLedger(window_size=8))
+    for _ in range(16):  # one 8-key bucket a party a request
+        if ask("default", 8)[0] is None:
+            raise AssertionError("overload: a recalibration request was shed")
+    cell = costmodel.default_cost_ledger().export()["cells"]["pir/materialized/8"]
+    device_ms = cell["mean_actual_ms"]
+    rate_history = Path(tmp) / "device.jsonl"
+    rate_history.write_text(json.dumps({"metric": "serving_closed_loop_queries_per_sec",
+                                        "value": 8e3 / device_ms}) + "\n")
+    mispriced = CapacityModel(calibration=ThroughputCalibration(str(rate_history)),
+                              misprice={"pir": OVERLOAD_MISPRICE})
+    ledger = costmodel.CostLedger(window_size=16)
+    rec = Recalibrator(model=mispriced, ledger=ledger, clamp=(0.25, 4.0),
+                       min_samples=16).install()
+    costmodel.set_default_cost_ledger(ledger)
+    for _, session in parties:
+        session.batcher.set_cost_model("pir", mispriced.price_pir_keys)
+    factors = []
+    for _ in range(64):
+        if ask("default", 8)[0] is None:
+            raise AssertionError("overload: a recalibration request was shed")
+        factors.append(rec.factor("pir"))
+    raw_ms = OVERLOAD_MISPRICE * 8 * device_ms / 8
+    corrected_ms = mispriced.price_pir_keys(8).device_ms
+    rec.set_enabled(False)
+    reverted_ms = mispriced.price_pir_keys(8).device_ms
+    rec.set_enabled(True)
+    # The factor that makes the corrected price the drill's own measured
+    # bucket-8 ms: 0.5 while the batches take what they took in the
+    # calibration; the host's drift between the two moves it.
+    drill_ms = ledger.export()["cells"]["pir/materialized/8"]["mean_actual_ms"]
+    target = drill_ms / raw_ms
+    if not (0.25 <= factors[-1] <= 4.0 and factors[-1] < 1.0
+            and abs(factors[-1] - target) <= 0.15):
+        failures.append(f"the factor went {factors[::8]}, not toward {target:.3f}")
+    if abs(reverted_ms - raw_ms) > 1e-9 * raw_ms:
+        failures.append(f"the kill switch priced {reverted_ms}, raw {raw_ms}")
+    costmodel.set_default_cost_ledger(previous_ledger)
+    for _, session in parties:
+        session.batcher.set_cost_model("pir")
+    steps["recalibration_s"] = time.perf_counter() - t0
+
+    final = counters()
+    emit({"phase": "overload", "config": "BASELINE.json configs[1], one card",
+          "records": NUM_RECORDS, "record_bytes": RECORD_BYTES,
+          "calibrated_queries_per_sec": serving_qps, "price_ms_a_key": price_ms,
+          "recalibrated_queries_per_sec": model.serving_queries_per_sec(),
+          "admission_budget_ms": OVERLOAD_BUDGET_MS, "deadline_ms": OVERLOAD_DEADLINE_MS,
+          "saturation": {"clients": threads * SERVING_PROCESSES,
+                         "requests": OVERLOAD_SATURATION_REQUESTS,
+                         "queries_per_sec": saturation, "shed": sat_shed,
+                         "duty_cycle_pct": sat_util["totals"]["duty_cycle_pct"],
+                         "bubbles_s": sat_util["totals"]["idle_s"],
+                         "bubble_ms_p50": sat_util["totals"]["bubble_ms_p50"],
+                         "bubble_ms_p99": sat_util["totals"]["bubble_ms_p99"],
+                         "traced_requests": OVERLOAD_TRACED, "traced_wall_ms": traced_ms,
+                         "device_busy_ms": busy_ms,
+                         "device_idle_share": None if busy_ms is None
+                         else 1.0 - busy_ms / traced_ms},
+          "overload": {"offered_queries_per_sec": 2 * saturation,
+                       "seconds": OVERLOAD_SECONDS,
+                       "arrivals": len(records) + sum(deferred.values()),
+                       "requests": len(records),
+                       "answered": len(answered), "goodput_queries_per_sec": goodput,
+                       "goodput_over_saturation": goodput / saturation,
+                       "wall_s": over_s, "shed": len(sheds), "shed_by_reason": reasons,
+                       "deferred_by_retry_hint": deferred,
+                       "errors": len(errors), "error_examples": [r[4] for r in errors[:3]],
+                       "expired_in_batch": delta.get("leader.batcher.expired_in_batch", 0),
+                       "deadline_exceeded": delta.get(
+                           "leader.batcher.requests_deadline_exceeded", 0),
+                       "keys_by_tenant": keys, "shares_by_tenant": shares,
+                       "p50_ms": lat[len(lat) // 2] if lat else None,
+                       "p99_ms": lat[int(len(lat) * 0.99)] if lat else None,
+                       "send_lag_ms_p99": sorted(r[6] for r in records)[
+                           int(len(records) * 0.99)] * 1e3,
+                       "server_counters": delta,
+                       "duty_cycle_pct": over_util["totals"]["duty_cycle_pct"],
+                       "bubbles_s": over_util["totals"]["idle_s"],
+                       "busy_s": over_util["totals"]["busy_s"]},
+          "admission": leader.admission.export(),
+          "workload": {k: v for k, v in observatory.export().items()
+                       if k in ("observations", "rate_qps", "burstiness_cv2", "tenants",
+                                "deadline_ms")},
+          "front_door": {k: v for k, v in front_door.export().items()
+                         if k in ("observations", "hot_share_pct", "zipf_exponent",
+                                  "top_keys")},
+          "ladder": ladder_log,
+          "ladder_transitions": [(t["step"], t["action"], t["level_after"])
+                                 for t in ladder.export()["transitions"]],
+          "recalibration": {"bucket8_device_ms": device_ms, "misprice": OVERLOAD_MISPRICE,
+                            "drill_bucket8_ms": drill_ms, "target_factor": target,
+                            "factors": factors, "clamp": [0.25, 4.0],
+                            "raw_ms": raw_ms, "corrected_ms": corrected_ms,
+                            "kill_switch_ms": reverted_ms,
+                            "windows": ledger.export()["cells"]},
+          "helper_tcp_reconnects": leader._transport.reconnects,
+          "steps_s": steps, "phase_s": time.perf_counter() - t_phase,
+          "leader_counters_total": {k: v for k, v in final.items()
+                                    if "shed" in k or "expired" in k},
+          "gate_failures": failures, "device": smi_line})
+    if failures:
+        raise AssertionError("overload: " + "; ".join(failures))
+    for sock in socks.values():
+        sock.close()
+    for tcp in servers:
+        tcp.stop()
+    helper_tcp.stop()
+    leader.close()
+    helper.close()
+    set_default_capacity_model(previous_model)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 # Private heavy hitters (the JAX package's heavy-hitters bench population,
@@ -3448,6 +4340,7 @@ def main() -> int:
     sparse_small_phase(sparse_rng, dev)
     sparse_db, sparse_params, sparse_value_of, _ = sparse_phase(dev, smi_line)
     sparse_two_party_phase(sparse_db, sparse_params, sparse_value_of, dev, smi_line)
+    sparse_serving_phase(sparse_db, sparse_params, sparse_value_of, dev, smi_line)
     del sparse_db, sparse_value_of
 
     # Private heavy hitters: the card against the plain versions at small

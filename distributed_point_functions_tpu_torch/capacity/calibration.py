@@ -75,3 +75,10 @@ class ThroughputCalibration:
                 severity="warning", metric=metric, fallback=fallback,
                 history_path=self._path)
         return fallback
+
+    def export(self) -> dict:
+        """The history path and the newest clean value of each metric."""
+        self._load()
+        with self._lock:
+            newest = dict(sorted(self._newest.items()))
+        return {"history_path": self._path, "calibrated_metrics": newest}

@@ -47,15 +47,31 @@ calibrated lanes/s: the newest clean record of
 `heavy_hitters_sweep_lanes_per_sec` in a history file the caller names
 (`ThroughputCalibration(history_path)`, in `calibration.py`: the file
 reader, whose malformed lines are skipped, stays out of this module),
-else the card's rate measured by `chip_smoke.py`. Environment overrides are not read; the dense-PIR
-pricing, mesh shapes and recalibration stay with the JAX package.
+else the card's rate measured by `chip_smoke.py`.
+
+Serving admission (JAX `:302-760`): `price_pir_keys` prices a request
+of dense-PIR keys in device-ms at the calibrated closed-loop serving
+q/s (`serving_closed_loop_queries_per_sec` in the history file, else the
+card's own rate that `chip_smoke.py`'s `serving` phase measured), and
+its byte peak as the materialized tier's selection bytes over the
+covering tree (the planner's count). `price_sparse_pir_keys` prices a
+sparse request: the JAX package's device-ms (two inner products a key
+there) and the byte peak of the port's one staging of bucket rows,
+which is one selection matrix over the bucket blocks, as a dense
+price. An installed correction provider (`set_correction_provider`,
+`recalibrate.py`) multiplies each priced device-ms; it must not raise.
+`misprice` (a constructor argument, `{workload: factor}`) multiplies a
+workload's price for accuracy drills, where the JAX package reads an
+environment variable. No environment variable is read. The serving
+mesh (`configure_mesh` and the per-shard prices) waits for the port's
+multi-device slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 from ..device import device_memory_bytes as probe_device_memory
 from .calibration import ThroughputCalibration
@@ -76,6 +92,13 @@ _FRONTIER_MEMORY_FRACTION = 64
 # 700 W power limit.
 HH_LANES_PER_SEC_FALLBACK = 337_949_863.0
 _HH_LANES_METRIC = "heavy_hitters_sweep_lanes_per_sec"
+# The serving sessions' closed-loop q/s on the card where no history
+# record calibrates it: `chip_smoke.py`'s `serving` phase (one-query
+# requests from 64 clients over TCP loopback to a Leader and a Helper
+# at 2^20 x 256 B: 116.44 q/s), on an NVIDIA H100 80GB HBM3 at a 700 W
+# power limit.
+SERVING_QPS_FALLBACK = 116.44
+_SERVING_QPS_METRIC = "serving_closed_loop_queries_per_sec"
 
 
 def padded_keys(num_keys: int) -> int:
@@ -89,8 +112,8 @@ class WorkCost:
 
     bytes_peak: int  # modeled peak live device bytes while it runs
     device_ms: float  # estimated device milliseconds
-    quantity: int  # atoms it contains (lanes)
-    unit: str  # "hh_lanes"
+    quantity: int  # atoms it contains (keys, lanes)
+    unit: str  # "pir_keys" | "sparse_keys" | "hh_lanes"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,16 +128,65 @@ class LevelChunking:
 
 
 class CapacityModel:
-    """Selection bytes of each dense-PIR tier against a budget, and the
-    heavy-hitters frontier's lane bytes, chunking and price."""
+    """Selection bytes of each dense-PIR tier against a budget, the
+    heavy-hitters frontier's lane bytes and chunking, and the prices of
+    serving requests and heavy-hitters levels.
+
+    `device_memory_bytes` pins the memory the budgets derive from (None:
+    the card's, or none on the CPU); `misprice` multiplies a workload's
+    priced device-ms (`{"pir": 2.0}`; drills only)."""
 
     def __init__(self, selection_budget: Optional[int] = None,
                  frontier_budget: Optional[int] = None,
-                 calibration: Optional[ThroughputCalibration] = None):
-        self._device_memory = probe_device_memory()
+                 calibration: Optional[ThroughputCalibration] = None,
+                 device_memory_bytes: Optional[int] = None,
+                 misprice: Optional[Dict[str, float]] = None):
+        self._device_memory = (device_memory_bytes if device_memory_bytes is not None
+                               else probe_device_memory())
         self._selection_budget = selection_budget
         self._frontier_budget = frontier_budget
         self.calibration = calibration if calibration is not None else ThroughputCalibration()
+        self._misprice = dict(misprice or {})
+        # `fn(workload, quantity) -> factor` multiplying each priced
+        # device-ms (`recalibrate.Recalibrator.correction`); None prices raw.
+        self._correction: Optional[Callable[[str, int], float]] = None
+        # The replica label of the price exports (None outside a fleet).
+        self._replica: Optional[str] = None
+
+    # -- replica identity and the correction hook ---------------------------
+
+    def set_replica(self, replica_id: Optional[str]) -> None:
+        """Label this model's exports with a replica id (None clears it)."""
+        self._replica = str(replica_id) if replica_id is not None else None
+
+    @property
+    def replica_id(self) -> Optional[str]:
+        return self._replica
+
+    def set_correction_provider(
+        self, provider: Optional[Callable[[str, int], float]]
+    ) -> None:
+        """Install (or, with None, remove) the recalibration correction
+        provider. It must be cheap and must not raise: a price has no
+        fallback."""
+        self._correction = provider
+
+    def misprice_factor(self, workload: str) -> float:
+        """The drill multiplier of `workload` (1.0 unless `misprice` set one)."""
+        return self._misprice.get(workload, 1.0)
+
+    def _corrected(self, workload: str, quantity: int, device_ms: float) -> float:
+        """A raw device-ms estimate times the drill multiplier and the
+        installed correction factor."""
+        device_ms *= self.misprice_factor(workload)
+        provider = self._correction
+        if provider is not None:
+            device_ms *= float(provider(workload, quantity))
+        return device_ms
+
+    @property
+    def device_memory_bytes(self) -> Optional[int]:
+        return self._device_memory
 
     def selection_budget_bytes(self) -> int:
         """The budget for selection tensors: the explicit one, else a
@@ -217,6 +289,71 @@ class CapacityModel:
     def hh_lanes_per_sec(self) -> float:
         return self.calibration.throughput(_HH_LANES_METRIC, HH_LANES_PER_SEC_FALLBACK)
 
+    # -- serving prices -------------------------------------------------------
+
+    def serving_queries_per_sec(self) -> float:
+        """Calibrated closed-loop serving q/s: the denominator of
+        admission's queue-drain estimate."""
+        return self.calibration.throughput(_SERVING_QPS_METRIC, SERVING_QPS_FALLBACK)
+
+    def _selection_peak(self, num_keys: int, num_blocks: Optional[int]) -> int:
+        """The materialized tier's selection bytes over the covering tree
+        (0 without a database geometry)."""
+        if not num_blocks:
+            return 0
+        leaves = max(num_blocks, 1 << max(0, (num_blocks - 1).bit_length()))
+        return self.materialized_selection_bytes(num_keys, num_blocks, leaves)
+
+    def price_pir_keys(self, num_keys: int, num_blocks: Optional[int] = None) -> WorkCost:
+        """Price a serving request of `num_keys` dense-PIR keys: the
+        materialized tier's selection bytes when the geometry is known
+        (the tier with the largest peak), device-ms at the calibrated
+        serving q/s."""
+        qps = max(1e-6, self.serving_queries_per_sec())
+        return WorkCost(
+            bytes_peak=self._selection_peak(num_keys, num_blocks),
+            device_ms=self._corrected("pir", num_keys, num_keys * 1e3 / qps),
+            quantity=num_keys, unit="pir_keys")
+
+    def price_sparse_pir_keys(self, num_keys: int,
+                              num_blocks: Optional[int] = None) -> WorkCost:
+        """Price a sparse (cuckoo key-value) request of `num_keys` DPF
+        keys over the bucket blocks: device-ms as the JAX package prices
+        it (twice a dense key's), the byte peak of the port's one
+        selection matrix over its one staging of bucket rows. Corrections
+        key on the "sparse" workload, apart from dense ones."""
+        qps = max(1e-6, self.serving_queries_per_sec())
+        return WorkCost(
+            bytes_peak=self._selection_peak(num_keys, num_blocks),
+            device_ms=self._corrected("sparse", num_keys, 2.0 * num_keys * 1e3 / qps),
+            quantity=num_keys, unit="sparse_keys")
+
+    def price_export(self, num_keys: int = 8, num_blocks: Optional[int] = None) -> dict:
+        """The replica's price card: one `price_pir_keys` probe at a small
+        batch, per key, and the q/s it derives from."""
+        cost = self.price_pir_keys(num_keys, num_blocks)
+        return {
+            "replica": self._replica,
+            "probe_keys": int(num_keys),
+            "device_ms": round(cost.device_ms, 4),
+            "device_ms_per_key": round(cost.device_ms / max(1, num_keys), 5),
+            "bytes_peak": cost.bytes_peak,
+            "queries_per_sec": round(self.serving_queries_per_sec(), 2),
+        }
+
+    def export(self) -> dict:
+        """The model's state: budgets, calibrated rates, calibration."""
+        return {
+            "replica": self._replica,
+            "device_memory_bytes": self._device_memory,
+            "selection_budget_bytes": self.selection_budget_bytes(),
+            "frontier_budget_bytes": self.frontier_budget_bytes(),
+            "serving_queries_per_sec": round(self.serving_queries_per_sec(), 2),
+            "hh_lanes_per_sec": round(self.hh_lanes_per_sec(), 2),
+            "misprice": dict(sorted(self._misprice.items())),
+            "calibration": self.calibration.export(),
+        }
+
     def price_hh_level(self, num_keys: int, num_prefixes: int, walk_levels: int,
                        value_blocks: int) -> WorkCost:
         """Price one heavy-hitters level (`num_keys x num_prefixes`
@@ -225,7 +362,8 @@ class CapacityModel:
         chunking = self.plan_hh_level(num_keys, num_prefixes, walk_levels, value_blocks)
         lanes = num_keys * num_prefixes
         lps = max(1e-6, self.hh_lanes_per_sec())
-        return WorkCost(bytes_peak=chunking.bytes_peak, device_ms=lanes * 1e3 / lps,
+        return WorkCost(bytes_peak=chunking.bytes_peak,
+                        device_ms=self._corrected("hh", lanes, lanes * 1e3 / lps),
                         quantity=lanes, unit="hh_lanes")
 
 

@@ -3,7 +3,8 @@
 Insertion picks a random hash function; if the bucket is occupied the
 resident element is evicted and re-inserted, up to `max_relocations` times,
 after which the element goes to the (optionally bounded) stash
-(`cuckoo_hash_table.cc:66-91`).
+(`cuckoo_hash_table.cc:66-91`). `preseed` pins an element into a bucket
+without hashing (the JAX package's addition for delta builds).
 """
 
 from __future__ import annotations
@@ -59,11 +60,14 @@ class CuckooHashTable:
         benchmark scale).
         """
         current = element.encode() if isinstance(element, str) else bytes(element)
-        if buckets is None:
-            buckets = tuple(
-                fn(current, self.num_buckets) for fn in self.hash_functions
-            )
         for _ in range(self.max_relocations):
+            if buckets is None:
+                # Hashed lazily: a preseeded slot (`preseed`) stores no
+                # buckets, so an evicted preseeded element hashes here on
+                # its first hop only.
+                buckets = tuple(
+                    fn(current, self.num_buckets) for fn in self.hash_functions
+                )
             h = self._rng.randrange(len(self.hash_functions))
             bucket = buckets[h]
             if self.table[bucket] is not None:
@@ -80,6 +84,18 @@ class CuckooHashTable:
         ):
             raise RuntimeError("cannot insert element: stash is full")
         self.stash.append(current)
+
+    def preseed(self, bucket: int, element: bytes) -> None:
+        """Pin `element` into `bucket` without hashing: a delta build
+        reproduces a previous build's slots before it inserts only the new
+        keys. The slot stores no buckets; if a later insert evicts the
+        element, `insert` hashes it on its first hop."""
+        if not 0 <= bucket < self.num_buckets:
+            raise ValueError(f"bucket {bucket} out of range")
+        if self.table[bucket] is not None:
+            raise ValueError(f"bucket {bucket} already occupied")
+        current = element.encode() if isinstance(element, str) else bytes(element)
+        self.table[bucket] = (current, None)
 
     def get_table(self) -> List[Optional[bytes]]:
         return [

@@ -17,7 +17,11 @@ Copied from the JAX package (`tracing`, `phases`, `events`,
 * `costmodel` and `slo` (copied) -- the cost ledger that joins the
   capacity model's price of each heavy-hitters level with its measured
   time and peak bytes, and the declarative objective that grades its
-  drift.
+  drift;
+* `utilization` and `workload` (copied) -- the device's duty cycle with
+  typed idle bubbles (the batcher's busy time is its span on its CUDA
+  stream), and the bounded-memory traffic characterization (count-min
+  sketch, top-K, Zipf fit, per-tenant arrival rate and burstiness).
 
 The layers run serving -> observability -> utils / robustness; nothing
 here imports `pir/`, `ops/` or `serving/`.

@@ -379,6 +379,29 @@ class DenseDpfPirDatabase:
             "database that is still staged"
         )
 
+    def rows_at(self, rows) -> np.ndarray:
+        """uint32[len(rows), W]: the given rows of the image without a full
+        read-back: from the host image while there is one, else gathered
+        from the staging (one small device-to-host copy), else the base
+        generation's rows with this delta's in place."""
+        rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+        if self._host_words is not None:
+            return self._host_words[rows]
+        with self._stage_lock:
+            perm = self._db_perm
+        if perm is not None:
+            index = torch.from_numpy(rows).to(self._device)
+            return to_numpy(perm[index % 32, index // 32])
+        if self._delta_base is not None:
+            out = self._delta_base.rows_at(rows).copy()
+            if len(self._delta_rows):
+                pos = np.minimum(np.searchsorted(self._delta_rows, rows),
+                                 len(self._delta_rows) - 1)
+                hit = self._delta_rows[pos] == rows
+                out[hit] = self._delta_words[pos[hit]]
+            return out
+        return self.host_rows()[rows]
+
     def prestage(self) -> int:
         """Stage now what serving would stage at its first batch: the
         staging, and the streaming and chunked stagings at the base

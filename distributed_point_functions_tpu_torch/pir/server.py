@@ -55,6 +55,7 @@ from typing import Callable, List, Optional
 from .. import native
 from ..device import resolve_device
 from ..dpf import DistributedPointFunction, DpfParameters
+from ..observability import phases as phases_mod
 from ..observability.device import default_telemetry
 from ..prng import Aes128CtrSeededPrng, mask_all, xor_bytes
 from ..value_types import XorType
@@ -361,6 +362,11 @@ class DenseDpfPirServer(DpfPirServer):
                     f"expected {expected_cw}"
                 )
         plan = self._plan_serving(len(keys))
+        # The batch-scoped phase record (batched serving) keys the cost
+        # ledger's residual cell by the tier that ran.
+        record = phases_mod.current_request()
+        if record is not None:
+            record.set_meta("serving_plan", {"mode": plan.mode, "num_keys": plan.num_keys})
         return messages.PirResponse(
             dpf_pir_response=messages.DpfPirResponse(
                 masked_response=self._execute_plan(plan, keys, self._database)

@@ -14,8 +14,11 @@ batch is planned and served by the dense server's planner and tiers
 (materialized, streaming or chunked, in the server's expansion mode), so
 one expansion and one inner product serve keys and values, and each
 response row is split on the host. The roles (Plain, Leader, Helper) are
-`DpfPirServer`'s. Serving across several cards comes with the port's
-multi-device slice.
+`DpfPirServer`'s. A snapshot rotation (`serving/snapshots.py`) checks a
+new generation with `validate_snapshot` (the same cuckoo geometry and
+row layout), stages it with `prestage_database` and swaps it in with
+`swap_database`, which swaps the dense server's staging too. Serving
+across several cards comes with the port's multi-device slice.
 """
 
 from __future__ import annotations
@@ -118,6 +121,51 @@ class CuckooHashingSparseDpfPirServer(DpfPirServer):
     @property
     def database(self) -> CuckooHashedDpfPirDatabase:
         return self._database
+
+    @property
+    def device(self):
+        return self._dense.device
+
+    def validate_snapshot(self, database: CuckooHashedDpfPirDatabase) -> None:
+        """Raise ValueError unless `database` may replace the serving one:
+        the same cuckoo geometry (bucket count and params: a client
+        hashing with the serving params must land on the new layout's
+        buckets) and the same rows (selection blocks, key and value
+        bytes: a response keeps its shape across the flip)."""
+        if database is None:
+            raise ValueError("database cannot be None")
+        if not isinstance(database, CuckooHashedDpfPirDatabase):
+            raise ValueError("sparse server cannot serve a dense database snapshot")
+        if database.num_buckets != self._params.num_buckets:
+            raise ValueError(
+                f"snapshot has {database.num_buckets} buckets, serving "
+                f"geometry has {self._params.num_buckets}")
+        if database.params != self._params:
+            raise ValueError(
+                "snapshot cuckoo params (hash count/family/seed) do not "
+                "match the serving geometry")
+        cur = self._database
+        for what, new_v, old_v in (
+            ("selection blocks", database.num_selection_blocks, cur.num_selection_blocks),
+            ("key bytes", database.key_size, cur.key_size),
+            ("value bytes", database.value_size, cur.value_size),
+        ):
+            if new_v != old_v:
+                raise ValueError(
+                    f"snapshot spans {new_v} {what}, serving database {old_v}")
+
+    def prestage_database(self, database: CuckooHashedDpfPirDatabase) -> int:
+        """Stage `database`'s bucket rows before a flip; returns the bytes
+        moved."""
+        return database.prestage()
+
+    def swap_database(self, database: CuckooHashedDpfPirDatabase) -> CuckooHashedDpfPirDatabase:
+        """Serve `database` from the next batch on (the snapshot flip, at a
+        batch boundary), after `validate_snapshot`; returns the old one."""
+        self.validate_snapshot(database)
+        self._dense.swap_database(database.dense_database)
+        old, self._database = self._database, database
+        return old
 
     @property
     def dense_server(self) -> DenseDpfPirServer:

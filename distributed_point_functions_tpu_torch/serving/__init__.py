@@ -14,7 +14,10 @@
 * `transport` -- length-prefixed frames over TCP (`FramedTcpServer`,
   `TcpTransport`, and `TcpTransportPool` for concurrent Helper legs)
   and an in-process transport;
-* `metrics` -- the sessions' counters, gauges and histograms.
+* `metrics` -- the sessions' counters, gauges and histograms;
+* `sparse` -- `SparsePlainSession`, `SparseHelperSession`,
+  `SparseLeaderSession`: cuckoo-hashed key-value lookups through the
+  same sessions, and `sparse_lookup` / `sparse_lookup_plain`.
 
 Ported from the JAX package's `serving/`; see each module for what it
 leaves out.
@@ -28,8 +31,17 @@ from .service import (
     LeaderSession,
     PlainSession,
     ServingConfig,
+    TenantPolicy,
 )
 from .snapshots import RotationCoordinator, SnapshotManager, SnapshotMismatch
+from .sparse import (
+    SparseHelperSession,
+    SparseLeaderSession,
+    SparsePlainSession,
+    make_sparse_client,
+    sparse_lookup,
+    sparse_lookup_plain,
+)
 from .transport import (
     FramedTcpServer,
     InProcessTransport,
@@ -55,10 +67,17 @@ __all__ = [
     "ServingConfig",
     "SnapshotManager",
     "SnapshotMismatch",
+    "SparseHelperSession",
+    "SparseLeaderSession",
+    "SparsePlainSession",
     "TcpTransport",
     "TcpTransportPool",
     "Transport",
     "TransportError",
+    "TenantPolicy",
     "TransportTimeout",
     "bucket_size",
+    "make_sparse_client",
+    "sparse_lookup",
+    "sparse_lookup_plain",
 ]

@@ -34,7 +34,21 @@ callbacks; these sessions wrap them into deployable objects:
   the generation its own share bound to with the Helper's echo and
   never combines shares of two generations: it raises
   `SnapshotMismatch` and retries the whole request up to
-  `snapshot_retries` times.
+  `snapshot_retries` times;
+* with `admission_enabled`, cost-aware admission
+  (`capacity/admission.py`) prices each request and sheds doomed,
+  over-quota and below-floor work with `Overloaded` (`retry_after_s`,
+  `reason`); tenants (`set_tenant`, `handle_request(tenant=)`) get
+  weights, quotas and priorities. The Leader admits a request before its
+  Helper leg is sent, so a shed request costs neither party device time;
+* `attach_brownout` wires the ladder's steps to this session: admission
+  floors (steps 1 and 4), the batch cap (step 2) and the process-wide
+  PIR tier floor (step 3);
+* the batcher and the Leader's Helper leg report busy time and typed
+  bubbles (`helper_rtt`: the round trip's tail not hidden behind the own
+  share) into a `UtilizationTracker` (`utilization`, `set_utilization`);
+  `attach_workload` feeds a `WorkloadObservatory`; `capacity_accuracy`
+  bundles the cost ledger, the shared recalibrator and the model.
 
 The `try` blocks here hand errors on, never answer in their place: an
 evaluation's failure (a kernel's launch or build included) reaches the
@@ -52,10 +66,12 @@ caller asks). A session's `metrics` hold its own counters, and its
 `launches` the kernel launches of its own batches. The device telemetry
 (`observability/device.py`) and the phase recorder are process-wide: a
 process that wants them in a registry binds one, once, itself, so that
-a Leader and a Helper in one process do not take each other's. Not carried from the JAX package: tenants and cost-aware
-admission, brownout, the cost-model and recalibration feeds,
-utilization accounting, workload observation, mesh wiring and the JAX
-compilation cache.
+a Leader and a Helper in one process do not take each other's. Not
+carried from the JAX package: the mesh wiring (it comes with the port's
+multi-device slice), the prober, and the XLA compilation cache (no XLA
+runs here). `handle_wire` takes a `tenant`, which the JAX package's
+does not: the wire carries none, so a deployment that serves tenants
+over TCP listens for each on its own port.
 """
 
 from __future__ import annotations
@@ -67,13 +83,18 @@ import time
 from typing import Optional
 
 from .. import serialization
+from ..capacity.admission import AdmissionController, TenantPolicy
+from ..capacity.brownout import BrownoutController
+from ..capacity.recalibrate import CapacityAccuracy, default_recalibrator
+from ..observability import costmodel as costmodel_mod
 from ..observability import critical_path, propagation, tracing
 from ..observability import events as events_mod
 from ..observability import phases as phases_mod
+from ..observability.utilization import default_utilization_tracker
 from ..ops import cuda_lib
 from ..pir import messages
 from ..pir.database import DenseDpfPirDatabase
-from ..pir.server import DenseDpfPirServer
+from ..pir.server import DenseDpfPirServer, clear_tier_floor, set_tier_floor
 from ..robustness import failpoints
 from ..robustness.breaker import CircuitBreaker
 from .batcher import DeadlineExceeded, DynamicBatcher, Overloaded
@@ -90,6 +111,7 @@ __all__ = [
     "HelperSession",
     "DeadlineExceeded",
     "Overloaded",
+    "TenantPolicy",
 ]
 
 
@@ -110,6 +132,14 @@ class ServingConfig:
     pins the Leader's envelope at v1 (no Helper phase digest, no
     critical-path split). `snapshot_retries` bounds the Leader's re-runs
     of a request whose Helper answered from another generation.
+
+    `admission_enabled` puts cost-aware admission in front of the
+    batcher (the queue then holds at most `admission_queue_budget_ms` of
+    estimated device-ms); `batching=False` serves every request on its
+    own thread without a batcher; `breaker_enabled=False` runs the
+    Helper leg without its breaker; `pipeline_depth` is the batcher's (2:
+    a completion thread; 1: complete on the worker); `utilization=False`
+    detaches the process-wide utilization tracker.
     """
 
     max_batch_size: int = 64
@@ -127,6 +157,12 @@ class ServingConfig:
     helper_retry_budget_min: float = 10.0
     helper_digest: bool = True
     snapshot_retries: int = 3
+    admission_enabled: bool = False
+    admission_queue_budget_ms: float = 250.0
+    batching: bool = True
+    breaker_enabled: bool = True
+    pipeline_depth: int = 2
+    utilization: bool = True
 
 
 # The deadline travels from handle_request into the server's plain
@@ -141,6 +177,66 @@ _DEADLINE: contextvars.ContextVar = contextvars.ContextVar(
 _EVAL_GENERATION: contextvars.ContextVar = contextvars.ContextVar(
     "serving_eval_generation", default=None
 )
+# The requesting tenant rides the same way, read where the plain
+# handler submits to the batcher.
+_TENANT: contextvars.ContextVar = contextvars.ContextVar(
+    "serving_tenant", default="default"
+)
+# Keys admitted ahead of the batcher's submit (`_Admitted`): by
+# `handle_wire` before it decodes, and by the Leader before its Helper leg.
+_ADMITTED: contextvars.ContextVar = contextvars.ContextVar(
+    "serving_admitted", default=None
+)
+
+
+class _Admitted:
+    """Keys a request was admitted for ahead of its submit, to one
+    session's batcher: `top_up` charges admission for the keys it lacks
+    (raising `Overloaded` on a shed), the plain handler of that batcher
+    `take`s the cost into its submit (an in-process Helper on the same
+    thread leaves another batcher's alone), and `release` gives back a
+    cost never submitted."""
+
+    __slots__ = ("batcher", "keys", "costs", "taken")
+
+    def __init__(self, batcher: DynamicBatcher):
+        self.batcher = batcher
+        self.keys = 0
+        self.costs = []
+        self.taken = False
+
+    def top_up(self, num_keys: int, tenant: str, deadline) -> None:
+        if not self.taken and num_keys > self.keys:
+            cost = self.batcher.admit(num_keys - self.keys, tenant, deadline)
+            self.keys = num_keys
+            if cost is not None:
+                self.costs.append(cost)
+
+    def take(self, batcher, num_keys: int, tenant: str, deadline):
+        """The admitted cost of `num_keys` for `batcher`'s submit, or None
+        when the box is another batcher's (or already taken)."""
+        if batcher is not self.batcher or self.taken:
+            return None
+        self.top_up(num_keys, tenant, deadline)
+        self.taken = True
+        if not self.costs:
+            return None
+        return dataclasses.replace(
+            self.costs[0], device_ms=sum(c.device_ms for c in self.costs),
+            quantity=sum(c.quantity for c in self.costs))
+
+    def release(self) -> None:
+        if not self.taken:
+            self.taken = True
+            for cost in self.costs:
+                self.batcher.release(cost)
+
+
+def _admitted_cost(batcher, keys):
+    """The cost admitted ahead for this submit (None: admit it there)."""
+    box = _ADMITTED.get()
+    return (box.take(batcher, len(keys), _TENANT.get(), _DEADLINE.get())
+            if box is not None else None)
 
 
 def evaluated_generation() -> Optional[int]:
@@ -167,16 +263,38 @@ class _Session:
         self.snapshots = None
         # This session's kernel launches, counted on its batch worker.
         self._launches: dict = {}
-        self._batcher = DynamicBatcher(
-            self._evaluate_keys,
-            max_batch_size=self._config.max_batch_size,
-            max_wait_ms=self._config.max_wait_ms,
-            max_queue=self._config.max_queue,
-            metrics=self.metrics,
-            name=f"{name}.batcher",
-            device=server.device,
-        )
-        server.set_plain_handler(self._batched_plain_handler)
+        # The process-wide cost ledger mirrors into this session's
+        # registry; the shared recalibrator corrects the default model.
+        ledger = costmodel_mod.default_cost_ledger()
+        ledger.bind_registry(self.metrics)
+        self.capacity_accuracy = CapacityAccuracy(
+            ledger=ledger, recalibrator=default_recalibrator())
+        self.admission: Optional[AdmissionController] = None
+        if self._config.admission_enabled:
+            self.admission = AdmissionController(
+                queue_budget_ms=self._config.admission_queue_budget_ms,
+                metrics=self.metrics,
+                name=f"{name}.admission",
+            )
+        self._batcher: Optional[DynamicBatcher] = None
+        if self._config.batching:
+            self._batcher = DynamicBatcher(
+                self._evaluate_keys,
+                max_batch_size=self._config.max_batch_size,
+                max_wait_ms=self._config.max_wait_ms,
+                max_queue=self._config.max_queue,
+                metrics=self.metrics,
+                name=f"{name}.batcher",
+                device=server.device,
+                admission=self.admission,
+                pipeline_depth=self._config.pipeline_depth,
+            )
+            server.set_plain_handler(self._batched_plain_handler)
+        self._util = None
+        if self._config.utilization:
+            self.set_utilization(default_utilization_tracker())
+        self._workload = None
+        self._workload_key_fn = None
 
     @property
     def server(self) -> DenseDpfPirServer:
@@ -187,7 +305,7 @@ class _Session:
         return self._config
 
     @property
-    def batcher(self) -> DynamicBatcher:
+    def batcher(self) -> Optional[DynamicBatcher]:
         return self._batcher
 
     @property
@@ -201,11 +319,92 @@ class _Session:
         land only at this session's batch boundaries, and the wire
         entry points carry and check the generation."""
         self.snapshots = manager
-        self._batcher.set_generation_source(manager)
+        if self._batcher is not None:
+            self._batcher.set_generation_source(manager)
         return manager
 
     def _emit(self, kind, message, severity="info", **fields):
         events_mod.default_journal().emit(kind, message, severity=severity, **fields)
+
+    # -- observation -----------------------------------------------------------
+
+    def attach_workload(self, observatory, key_fn=None):
+        """Feed a `WorkloadObservatory` from this session's entry point:
+        every `handle_request` observes its key count, tenant and
+        deadline headroom. Key indices stay out (the DPF keys hide them
+        from this server) unless `key_fn(request) -> indices` supplies
+        them where they are public (plain deployments, load generators).
+        Returns `observatory`."""
+        self._workload = observatory
+        self._workload_key_fn = key_fn
+        return observatory
+
+    def _observe_workload(self, request, deadline, tenant, now) -> None:
+        observatory = self._workload
+        if observatory is None:
+            return
+        plain = request.plain_request
+        key_fn = self._workload_key_fn
+        observatory.observe(
+            num_keys=len(plain.dpf_keys) if plain is not None else 1,
+            tenant=tenant,
+            key_indices=key_fn(request) if key_fn is not None else None,
+            deadline_s=max(0.0, deadline - now) if deadline is not None else None,
+            now=now,
+        )
+
+    def set_utilization(self, tracker):
+        """Report this session's busy time and bubbles into `tracker` (a
+        `UtilizationTracker`, mirrored into this session's registry);
+        None detaches. Returns `tracker`."""
+        self._util = tracker
+        if tracker is not None:
+            tracker.bind_registry(self.metrics)
+        if self._batcher is not None:
+            self._batcher.set_utilization(tracker)
+        return tracker
+
+    # -- QoS and brownout --------------------------------------------------------
+
+    def set_tenant(self, tenant: str, policy: TenantPolicy) -> None:
+        """Register a tenant's QoS contract (needs `admission_enabled`)."""
+        if self.admission is None:
+            raise RuntimeError("set_tenant requires ServingConfig.admission_enabled")
+        self.admission.set_tenant(tenant, policy)
+
+    def attach_brownout(self, brownout: BrownoutController, batch_cap: int = 8,
+                        cheap_tier: str = "streaming") -> BrownoutController:
+        """Wire the ladder's steps to this session: admission priority
+        floors (steps 1 and 4, with admission), the batcher's batch cap
+        (step 2) and the process-wide PIR tier floor (step 3). Returns
+        `brownout`."""
+        if self.admission is not None:
+            adm = self.admission
+            brownout.add_step_action(
+                "shed_low_priority",
+                lambda: adm.set_min_priority(1),
+                lambda: adm.set_min_priority(0),
+            )
+            # Reverts run in reverse engage order: critical_only's revert
+            # returns the floor to shed_low_priority's.
+            brownout.add_step_action(
+                "critical_only",
+                lambda: adm.set_min_priority(2),
+                lambda: adm.set_min_priority(1),
+            )
+        if self._batcher is not None:
+            batcher = self._batcher
+            brownout.add_step_action(
+                "cap_batches",
+                lambda: batcher.set_batch_cap(batch_cap),
+                lambda: batcher.set_batch_cap(None),
+            )
+        brownout.add_step_action(
+            "force_cheap_tier",
+            lambda: set_tier_floor(cheap_tier),
+            clear_tier_floor,
+        )
+        return brownout
 
     # -- batching -----------------------------------------------------------
 
@@ -219,8 +418,10 @@ class _Session:
         return response.dpf_pir_response.masked_response
 
     def _batched_plain_handler(self, request):
+        keys = request.plain_request.dpf_keys
         out, generation = self._batcher.submit_ex(
-            request.plain_request.dpf_keys, deadline=_DEADLINE.get()
+            keys, deadline=_DEADLINE.get(), tenant=_TENANT.get(),
+            admitted=_admitted_cost(self._batcher, keys),
         )
         if generation is not None:
             # Read up-stack on this same context (the Helper's echo, the
@@ -241,21 +442,26 @@ class _Session:
         self,
         request: "messages.PirRequest",
         deadline: Optional[float] = None,
+        tenant: str = "default",
     ) -> "messages.PirResponse":
         """Serve one request; `deadline` is absolute `time.monotonic()`
-        seconds (default from `request_timeout_ms`)."""
+        seconds (default from `request_timeout_ms`); `tenant` keys the
+        admission policy when admission is enabled."""
         if deadline is None:
             deadline = self._default_deadline()
+        self._observe_workload(request, deadline, tenant, time.monotonic())
         token = _DEADLINE.set(deadline)
+        tenant_token = _TENANT.set(tenant)
         try:
             with tracing.trace_request(f"{self._name}.request", role=self._name):
                 with phases_mod.default_phase_recorder().request(self._name):
                     with self.metrics.timed(f"{self._name}.request_ms"):
                         return self._server.handle_request(request)
         finally:
+            _TENANT.reset(tenant_token)
             _DEADLINE.reset(token)
 
-    def handle_wire(self, data: bytes) -> bytes:
+    def handle_wire(self, data: bytes, tenant: str = "default") -> bytes:
         """Framed proto entry point (plugs into `FramedTcpServer`).
 
         An incoming trace-context envelope (a Leader's Helper leg) is
@@ -266,6 +472,11 @@ class _Session:
         older Leader) is answered bare. A shed request (`Overloaded`)
         from an enveloped peer answers a typed error envelope with the
         backoff hint; from a bare peer it propagates to the transport.
+        `tenant` keys the admission policy (the wire carries none). With
+        admission, a request is admitted for one key before it is decoded
+        (every request has one), so that a shed costs no decode; a request
+        of more keys is charged the rest once decoded (two admissions in
+        its tenant's count).
         """
         recv_ms = time.perf_counter() * 1e3
         trace_id, inner, req_version, req_generation = (
@@ -273,6 +484,30 @@ class _Session:
         )
         resp_version = min(req_version, propagation.PROPAGATION_VERSION)
         _EVAL_GENERATION.set(None)
+        if self.admission is not None and self._batcher is not None:
+            deadline = self._default_deadline()
+            box = _Admitted(self._batcher)
+            try:
+                box.top_up(1, tenant, deadline)
+            except Overloaded as e:
+                if trace_id is None:
+                    raise
+                self.metrics.counter(f"{self._name}.wire_overloads").inc()
+                return propagation.encode_error(
+                    "overloaded", message=str(e), retry_after_s=e.retry_after_s,
+                    trace_id=trace_id)
+            token = _ADMITTED.set(box)
+            try:
+                return self._serve_wire(inner, trace_id, resp_version, req_generation,
+                                        recv_ms, tenant, deadline)
+            finally:
+                _ADMITTED.reset(token)
+                box.release()
+        return self._serve_wire(inner, trace_id, resp_version, req_generation, recv_ms,
+                                tenant, None)
+
+    def _serve_wire(self, inner, trace_id, resp_version, req_generation, recv_ms,
+                    tenant, deadline):
         t0 = time.perf_counter()
         with tracing.trace_request(
             f"{self._name}.request",
@@ -290,7 +525,7 @@ class _Session:
                     request = serialization.parse_pir_request(
                         self._server.dpf, inner)
                 try:
-                    response = self.handle_request(request)
+                    response = self.handle_request(request, deadline, tenant)
                 except Overloaded as e:
                     if trace_id is None:
                         raise
@@ -342,8 +577,9 @@ class _Session:
             )
 
     def close(self) -> None:
-        self._server.set_plain_handler(None)
-        self._batcher.close()
+        if self._batcher is not None:
+            self._server.set_plain_handler(None)
+            self._batcher.close()
 
     def __enter__(self):
         return self
@@ -436,12 +672,14 @@ class LeaderSession(_Session):
         self._retry_tokens = float(self._config.helper_retry_budget_min)
         self._g_retry_tokens = m.gauge("leader.retry_budget_tokens")
         self._g_retry_tokens.set(self._retry_tokens)
-        self._breaker = CircuitBreaker(
-            failure_threshold=self._config.breaker_failure_threshold,
-            reset_timeout_ms=self._config.breaker_reset_ms,
-            name="leader.helper",
-        )
-        self._breaker.on_transition(self._on_breaker_transition)
+        self._breaker: Optional[CircuitBreaker] = None
+        if self._config.breaker_enabled:
+            self._breaker = CircuitBreaker(
+                failure_threshold=self._config.breaker_failure_threshold,
+                reset_timeout_ms=self._config.breaker_reset_ms,
+                name="leader.helper",
+            )
+            self._breaker.on_transition(self._on_breaker_transition)
 
     @property
     def degraded(self) -> bool:
@@ -450,8 +688,16 @@ class LeaderSession(_Session):
         return self._degraded
 
     @property
-    def breaker(self) -> CircuitBreaker:
+    def breaker(self) -> Optional[CircuitBreaker]:
         return self._breaker
+
+    def breaker_export(self) -> Optional[dict]:
+        """The Helper leg's breaker state (None without a breaker)."""
+        if self._breaker is None:
+            return None
+        out = self._breaker.export()
+        out["degraded_mode"] = self._degraded
+        return out
 
     def _on_breaker_transition(self, old: str, new: str) -> None:
         self._g_breaker.set(float(self._breaker.state_code()))
@@ -498,7 +744,7 @@ class LeaderSession(_Session):
         old one."""
         _EVAL_GENERATION.set(None)
         breaker = self._breaker
-        if not breaker.allow():
+        if breaker is not None and not breaker.allow():
             self._c_fast_fails.inc()
             raise HelperUnavailable("helper circuit breaker is open (fast-fail)")
         wire = serialization.serialize_pir_request(self._server.dpf, helper_request)
@@ -558,7 +804,8 @@ class LeaderSession(_Session):
                         payload, timeout=timeout, on_sent=leader_share_once,
                     )
                 rtt_ms = (time.perf_counter() - t0) * 1e3
-                breaker.record_success()
+                if breaker is not None:
+                    breaker.record_success()
                 self._retry_budget_earn()
                 break
             except Exception as e:  # noqa: BLE001 - triaged below
@@ -581,7 +828,8 @@ class LeaderSession(_Session):
                     continue
                 if not isinstance(e, TransportError):
                     raise
-                breaker.record_failure()
+                if breaker is not None:
+                    breaker.record_failure()
                 last = e
                 if isinstance(e, TransportTimeout):
                     self._c_timeouts.inc()
@@ -609,6 +857,12 @@ class LeaderSession(_Session):
         # A fast Helper could answer before the share ran.
         leader_share_once()
         phases_mod.record("helper_rtt", rtt_ms)
+        if self._util is not None:
+            # Only the round trip's tail after the own share ended is a
+            # barrier: the Leader waited on the Helper alone.
+            win = share_window[0]
+            exposed_ms = rtt_ms if win is None else max(0.0, t0 * 1e3 + rtt_ms - win[1])
+            self._util.record_idle("helper_rtt", exposed_ms / 1e3, thread="leader")
         try:
             meta, inner = (
                 propagation.try_decode_response(data) if enveloped else (None, data)
@@ -705,14 +959,14 @@ class LeaderSession(_Session):
 
     # -- degradation --------------------------------------------------------
 
-    def handle_request(self, request, deadline=None):
+    def handle_request(self, request, deadline=None, tenant="default"):
         if deadline is None:
             deadline = self._default_deadline()
         retries = max(0, self._config.snapshot_retries)
         attempt = 0
         while True:
             try:
-                return self._handle_request_once(request, deadline)
+                return self._handle_request_once(request, deadline, tenant)
             except SnapshotMismatch:
                 # The whole request again: the own share re-binds once
                 # this party's pending flip lands at a batch boundary.
@@ -722,9 +976,31 @@ class LeaderSession(_Session):
                 self._c_snapshot_retries.inc()
                 time.sleep(0.002 * attempt)
 
-    def _handle_request_once(self, request, deadline):
+    def _handle_request_once(self, request, deadline, tenant):
+        # Admission before the Helper leg is sent: a shed request costs
+        # neither party device time. The own share's submit takes the
+        # admitted cost; a cost never submitted (the leg failed first)
+        # goes back. A box `handle_wire` opened is topped up, and it
+        # releases it.
+        if self._batcher is None or request.leader_request is None:
+            return self._serve_once(request, deadline, tenant)
+        num_keys = len(request.leader_request.plain_request.dpf_keys)
+        box = _ADMITTED.get()
+        if box is not None and box.batcher is self._batcher and not box.taken:
+            box.top_up(num_keys, tenant, deadline)
+            return self._serve_once(request, deadline, tenant)
+        box = _Admitted(self._batcher)
+        box.top_up(num_keys, tenant, deadline)
+        token = _ADMITTED.set(box)
         try:
-            return super().handle_request(request, deadline)
+            return self._serve_once(request, deadline, tenant)
+        finally:
+            _ADMITTED.reset(token)
+            box.release()
+
+    def _serve_once(self, request, deadline, tenant):
+        try:
+            return super().handle_request(request, deadline, tenant)
         except HelperUnavailable:
             if not (self._config.allow_degraded and request.leader_request is not None):
                 raise

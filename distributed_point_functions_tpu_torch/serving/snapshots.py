@@ -5,10 +5,13 @@ The port of the JAX package's `serving/snapshots.py`, on the port's
 `Builder.build_from(prev)` delta copies N's staging on the card and
 scatters in only the updated rows (`last_prestage_stats["mode"] ==
 "delta"`), and the drain frees N's device buffers once its last batch
-has read its result back. Not carried: debug-bundle capture on a
-mismatch, the forecast window source, utilization accounting of the
-flip's wait (their modules are not ported yet), and the prober's
-`pin()` and flip listeners (they come with `serving/prober.py`).
+has read its result back. A server with `validate_snapshot` (the
+sparse one) decides what may be staged; its refusal is a
+`SnapshotMismatch`. A flip's drain wait is a `snapshot_flip` bubble of
+the process-wide utilization tracker. Not carried: debug-bundle capture
+on a mismatch and the forecast window source (their modules are not
+ported yet), and the prober's `pin()` and flip listeners (they come
+with `serving/prober.py`).
 
 Every session used to stage one immutable `DenseDpfPirDatabase` at
 construction and serve it forever. A directory changes continuously,
@@ -60,6 +63,7 @@ import time
 from typing import Optional
 
 from ..observability import events as events_mod
+from ..observability.utilization import default_utilization_tracker
 from ..robustness import failpoints
 
 __all__ = [
@@ -181,12 +185,25 @@ class SnapshotManager:
         a mismatch fails here, before any flip is armed. Replacing an
         already-staged (never-flipped) candidate drops its buffers."""
         cur = self._server.database
-        if database.size != cur.size:
+        validate = getattr(self._server, "validate_snapshot", None)
+        if validate is not None:
+            # A server that owns its swap precondition (the sparse one:
+            # cuckoo geometry and row layout) refuses a mis-rotated
+            # snapshot as the typed rotation fault.
+            try:
+                validate(database)
+            except ValueError as e:
+                self._c_mismatches.inc()
+                raise SnapshotMismatch(
+                    cur.generation, database.generation,
+                    message=f"staged generation rejected: {e}",
+                ) from e
+        elif database.size != cur.size:
             raise ValueError(
                 f"staged generation size {database.size} != serving "
                 f"{cur.size}"
             )
-        if database.max_value_size != cur.max_value_size:
+        elif database.max_value_size != cur.max_value_size:
             raise ValueError(
                 "staged generation max_value_size "
                 f"{database.max_value_size} != serving "
@@ -297,6 +314,10 @@ class SnapshotManager:
                 waited_s += time.monotonic() - t_wait
             record = self._history[-1]
             record["flip_wait_ms"] = round(waited_s * 1e3, 3)
+        # The flip's drain wait (in-flight batches) is a typed bubble:
+        # the rotation held work back.
+        default_utilization_tracker().record_idle(
+            "snapshot_flip", waited_s, thread="rotation")
         if fired is not None:
             self._after_flip(fired)
         return dict(record)
