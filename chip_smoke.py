@@ -12,7 +12,8 @@ non-zero before printing a result. Phases, one JSON line each:
 
 1. `device`: the card (`nvidia-smi` name and power limit, SMs, max SM
    clock); the raw `nvidia-smi --query-gpu=name,power.limit` line is
-   printed on its own line too.
+   printed on its own line too, and `backend` before it:
+   `utils.get_backend_mode_string()`.
 2. `build`: the kernels built from `csrc/` (seconds, and the registers
    and spills `nvcc -Xptxas -v` reports), then the host library built
    from `csrc/host/` with g++ (`host_library_seconds`). Then `split_aes`: the latency
@@ -125,7 +126,19 @@ non-zero before printing a result. Phases, one JSON line each:
    0.70 of it, sheds at admission only with hints and reasons, tenant
    shares within 15% of 3:1), the brownout ladder's levels with each
    party's launches against the plan, a recalibration drill; every
-   answer its record's.
+   answer its record's. Before `overload`, on the same TCP Leader and
+   Helper at generation 1 (`prober_phase`): `prober` (one probe of every
+   dense kind, `leader_e2e` and `hh_sweep`, each `ok` and launching its
+   tier's plan), `prober_drill` (a word XORed into a golden row of the
+   Leader's stagings: every dense kind `mismatch`, `/healthz` 503, one
+   debug bundle; undone: `recovered`, 200), `prober_loop` (the
+   background loop during a wave of the 64 clients: the duty cycle of a
+   complete period at most 0.05, no probe failed) and `admin` (every route of an `AdminServer` over the
+   Leader's registry, the prober, bundles, snapshots, a time-series
+   sampler, a workload observatory and a forecaster: status and content
+   type as `ADMIN_ROUTES`, `/metrics` parsing as Prometheus text, a
+   forecast time-to-breach of the arrival rate, a `/profilez` trace
+   naming a port kernel).
 6. The DPF and DCF paths, each run with every launch count set to 0
    just before it and checked just after:
    - `dcf`: `DistributedComparisonFunction.create(32, IntType(64))`,
@@ -223,6 +236,13 @@ non-zero before printing a result. Phases, one JSON line each:
    - `main_path_v1`: the main path's database built with
      `inner_product="v1"`, both parties served in the default mode: every
      record reconstructs, K4 = 4 and K7 = 2 launches, no K1;
+   - `staging` for configs[2]'s image (`stage_and_measure`): the
+     pipelined staging (`pir/database.py:stage_bitmajor`, 8 slabs) and
+     the one-copy staging it replaced, on the same image in turns
+     (pipelined, one-copy, one-copy, pipelined): ms, `db_staging`
+     copies, syncs, `overlapped_ms` and peak bytes each; gates: equal
+     bit for bit, copies > syncs, `overlapped_ms` > 0, peak under 1.5x
+     the staging;
    - `tier` x4 at `BASELINE.json` configs[2] (2^22 x 256 B records, 1,024
      queries): `materialized` at the card's default budget, `streaming`
      under a 64 MiB selection budget (`CapacityModel(selection_budget=64
@@ -253,8 +273,8 @@ non-zero before printing a result. Phases, one JSON line each:
      196,608 selection blocks: 18 expansion levels, no host walk), built
      through the builder (`build_s`; the SHA256 hashing, the native build
      of the slot array and the packing of the bucket rows timed again
-     alone, the staging), one dense staging of 32-byte bucket rows (key
-     words, then value words). Batches of 64 and 128 queries (8 absent
+     alone, the staging, with its `staging` line as configs[2]'s), one
+     dense staging of 32-byte bucket rows (key words, then value words). Batches of 64 and 128 queries (8 absent
      each) in walk mode on the planner's tier at the default budget, then
      streaming and chunked under a 64 MiB budget with the tier floor: the
      launches the plan gives, every present key resolved, every absent
@@ -270,7 +290,9 @@ non-zero before printing a result. Phases, one JSON line each:
    - `sparse_serving` (`sparse_serving_phase`): sparse Leader and
      Helper sessions over TCP on that database and a replica, 64
      one-lookup clients, then a 4,096-upsert write batch rotated in
-     under traffic as a delta of the touched bucket rows.
+     under traffic as a delta of the touched bucket rows; `sparse_probe`:
+     the prober's `sparse_kv` and `sparse_absent` on the Leader, `ok`
+     before the rotation and after it with the goldens rotated.
    Then private heavy hitters (its own generator), each party's launches
    counted on its own aggregator's stream from just before each run:
    - `hh_small`: the JAX test's 8-bit config and values, and a 24-bit
@@ -312,6 +334,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import socket
 import statistics
@@ -1289,7 +1312,202 @@ def tier_launches(plan, mode: str, key_groups: int) -> dict:
     return {name: 2 * n for name, n in per_party.items() if n}
 
 
-def tiers_phase(rng, dev) -> dict:
+# What each admin route answers (status, content type) with the
+# attachments of `serving_phase`'s admin step: a registry, a prober,
+# bundles, the capacity accuracy export, snapshots, a time-series
+# sampler, a workload observatory and a forecaster; no fleet. Written
+# out here, since this script imports nothing of the JAX package; a CPU
+# test holds it equal to the JAX package's `AdminServer` with the same
+# attachments.
+_TEXT = "text/plain; charset=utf-8"
+_JSON = "application/json"
+ADMIN_ROUTES = {
+    "/healthz": (200, _JSON),
+    "/metrics": (200, "text/plain; version=0.0.4; charset=utf-8"),
+    "/varz": (200, _JSON),
+    "/statusz": (200, "text/html; charset=utf-8"),
+    "/tracez": (200, _JSON),
+    "/eventz": (200, _TEXT),
+    "/probez": (200, _JSON),
+    "/debugz": (200, _JSON),
+    "/criticalz": (200, _TEXT),
+    "/capacityz": (200, _TEXT),
+    "/utilz": (200, _TEXT),
+    "/timeseriesz": (200, _TEXT),
+    "/workloadz": (200, _TEXT),
+    "/forecastz": (200, _TEXT),
+    "/fleetz": (404, _TEXT),
+    "/fleet-statusz": (404, _TEXT),
+    "/fleet-timelinez": (404, _TEXT),
+    "/profilez": (200, _JSON),
+}
+ADMIN_PROFILE_MS = 200
+# One Prometheus text sample line: a name, labels, a value, an optional
+# timestamp and an optional OpenMetrics exemplar.
+PROMETHEUS_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*",?)*\})?'
+    r' [-+]?([0-9.eE+-]+|Inf|NaN)( [0-9]+)?( # \{.*\} \S+( \S+)?)?$')
+
+
+def http_get(url: str, timeout: float = 30.0):
+    """(status, content type, body) of one GET, errors included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def scrape_admin(port: int, routes=ADMIN_ROUTES) -> dict:
+    """Each of `routes` (default: every admin route) once: {route:
+    (status, content type, body)}; `/profilez` for ADMIN_PROFILE_MS."""
+    out = {}
+    for route in routes:
+        query = f"?duration_ms={ADMIN_PROFILE_MS}" if route == "/profilez" else ""
+        out[route] = http_get(f"http://127.0.0.1:{port}{route}{query}")
+    return out
+
+
+def stage_and_measure(db, host, dev, label: str, smi_line: str) -> dict:
+    """Stage `db` (the pipelined staging of its host image `host`) and
+    time the one-copy staging of the same image beside it, in turns:
+    pipelined (`db` itself), one-copy, one-copy, pipelined (a second
+    database over the same image, then released). Gates the first run:
+    its staging equals the one-copy staging, more `db_staging` copies
+    than syncs, `overlapped_ms` > 0, and a peak under 1.5x the staging.
+    Prints the `staging` line; returns it."""
+    import torch
+
+    from distributed_point_functions_tpu_torch.observability.device import (
+        default_telemetry,
+    )
+    from distributed_point_functions_tpu_torch.ops.inner_product_kernels import (
+        permute_db_bitmajor,
+    )
+    from distributed_point_functions_tpu_torch.ops.words import to_tensor
+    from distributed_point_functions_tpu_torch.pir import DenseDpfPirDatabase
+    from distributed_point_functions_tpu_torch.pir.database import slab_spans
+
+    ledger = default_telemetry().transfers
+
+    def measured(run):
+        fields = ("copies", "syncs", "overlapped_ms", "sync_wait_ms", "bytes_h2d")
+        before = {f: getattr(ledger, f)("db_staging") for f in fields}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {f: getattr(ledger, f)("db_staging") - before[f] for f in fields}
+        return out, {"stage_ms": ms, **got,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev) - base}
+
+    def one_copy():
+        rows = to_tensor(host, dev)
+        return permute_db_bitmajor(rows)
+
+    staged, first = measured(db.staged)
+    yard, one = measured(one_copy)
+    if not torch.equal(staged, yard):
+        raise AssertionError(f"staging {label}: differs from the one-copy staging")
+    del yard
+    _, one_again = measured(one_copy)
+    second_db = DenseDpfPirDatabase.from_words(host, db.size, db.max_value_size, device=dev)
+    _, second = measured(second_db.staged)
+    second_db.release_stagings()
+    del second_db
+    nbytes = staged.numel() * 4
+    line = {"phase": "staging", "config": label, "records": db.size,
+            "host_image_bytes": host.nbytes, "staged_bytes": nbytes,
+            "slabs": len(slab_spans(host.shape[0])),
+            "pipelined": first, "pipelined_again": second,
+            "one_copy": one, "one_copy_again": one_again,
+            "peak_over_staged": first["peak_bytes"] / nbytes,
+            "one_copy_peak_over_staged": one["peak_bytes"] / nbytes,
+            "equals_one_copy": True, "device": smi_line}
+    emit(line)
+    if not first["copies"] > first["syncs"]:
+        raise AssertionError(f"staging {label}: {first['copies']} copies, "
+                             f"{first['syncs']} syncs")
+    if not first["overlapped_ms"] > 0:
+        raise AssertionError(f"staging {label}: nothing overlapped")
+    if not first["peak_bytes"] < 1.5 * nbytes:
+        raise AssertionError(f"staging {label}: peak {first['peak_bytes']} B, "
+                             f"staging {nbytes} B")
+    return line
+
+
+def probe_plan(prober, kind: str):
+    """The serving plan of one share of a dense probe of `kind` (its
+    golden keys, bucketed unless `pir_unbatched`, under the tier floor
+    the kind forces) and its key count."""
+    from distributed_point_functions_tpu_torch.pir import server as server_mod
+    from distributed_point_functions_tpu_torch.serving.batcher import bucket_size
+
+    server = prober._session.server
+    keys = len(prober._indices)
+    if kind != "pir_unbatched":
+        keys = bucket_size(keys)
+    floor = {"pir_streaming": "streaming", "pir_chunked": "chunked"}.get(kind)
+    previous = server_mod.tier_floor()
+    server_mod.set_tier_floor(floor)
+    try:
+        return server._plan_serving(keys), keys
+    finally:
+        server_mod.set_tier_floor(previous)
+
+
+def probe_want_launches(prober, kind: str) -> dict:
+    """The launches one probe of `kind` must make in this process: the
+    plan of its tier for the golden pair (`tier_launches`: both plain
+    shares, a batch each, on the prober's server; `pir_materialized` and
+    `leader_e2e` at the cleared floor, whose Leader's and Helper's shares
+    are the two batches; `pir_unbatched` off the batcher), or the sweep
+    servers' level plans (`hh_sweep`; read after the probe)."""
+    if kind == "hh_sweep":
+        want = {}
+        for server in prober._hh[:2]:
+            for name, n in hh_want_launches(server.aggregator.plans).items():
+                want[name] = want.get(name, 0) + n
+        return want
+    plan, keys = probe_plan(prober, kind)
+    return tier_launches(plan, prober._session.server.expansion, -(-keys // 32))
+
+
+def xor_staged_word(db, row: int, word: int, value: int) -> int:
+    """XOR `value` (a signed 32-bit int) into word `word` of record `row`,
+    in place, in every staging the dense database `db` holds: the
+    bit-major staging, the streaming tier's chunks (at the row's place
+    in streaming block order) and a padded chunked copy. A second call
+    with the same arguments undoes it. Returns the stagings changed."""
+    from distributed_point_functions_tpu_torch.pir.dense_eval_planes_v2 import (
+        streaming_block_order,
+    )
+
+    with db._stage_lock:
+        tensors = [db._staged_locked()]
+        tensors[0][row % 32, row // 32, word] ^= value
+        if db._chunked is not None and db._chunked[1] is not tensors[0]:
+            db._chunked[1][row % 32, row // 32, word] ^= value
+            tensors.append(db._chunked[1])
+        if db._streaming is not None:
+            cut, chunks = db._streaming
+            levels = max(0, (db.num_selection_blocks - 1).bit_length())
+            order = streaming_block_order(levels, cut)
+            pos = int(np.flatnonzero(order == row // 128)[0]) * 128 + row % 128
+            span = (128 << levels) >> cut
+            local = pos % span
+            chunks[pos // span, local % 32, local // 32, word] ^= value
+            tensors.append(chunks)
+    return len(tensors)
+
+
+def tiers_phase(rng, dev, smi_line: str) -> dict:
     """BASELINE.json configs[2]: 2^22 records of 256 B, 1,024 queries,
     both parties, the default expansion mode, on each serving tier the
     planner gives: materialized at the card's default budget (1/16 of its
@@ -1323,9 +1541,8 @@ def tiers_phase(rng, dev) -> dict:
     data = rng.bytes(TIER_RECORDS * RECORD_BYTES)
     records = [data[i * RECORD_BYTES:(i + 1) * RECORD_BYTES] for i in range(TIER_RECORDS)]
     db = DenseDpfPirDatabase(records)
-    db.staged()
-    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    stage_and_measure(db, db.host_rows(), dev, "BASELINE.json configs[2]", smi_line)
     idx = [int(i) for i in rng.integers(0, TIER_RECORDS, TIER_QUERIES)]
     t0 = time.perf_counter()
     r0, r1 = DenseDpfPirClient.create(
@@ -1558,10 +1775,9 @@ def sparse_phase(dev, smi_line: str) -> dict:
     t0 = time.perf_counter()
     db = builder.build()
     build["build_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    db.dense_database.staged()
-    torch.cuda.synchronize()
-    build["stage_ms"] = (time.perf_counter() - t0) * 1e3
+    build["stage_ms"] = stage_and_measure(
+        db.dense_database, db.dense_database.host_rows(), dev,
+        "BASELINE.json configs[4], one card", smi_line)["pipelined"]["stage_ms"]
     build["build_s"] = (build["insert_ms"] + build["build_ms"] + build["stage_ms"]) / 1e3
     # The builder's steps again, each alone, on the same inputs.
     seeds = [SPARSE_SEED + str(i).encode() for i in range(params.num_hash_functions)]
@@ -1854,6 +2070,7 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
     import torch
 
     from distributed_point_functions_tpu_torch.observability import costmodel
+    from distributed_point_functions_tpu_torch.observability.events import EventJournal
     from distributed_point_functions_tpu_torch.pir import (
         CuckooHashedDpfPirDatabase,
         CuckooHashingSparseDpfPirServer,
@@ -1870,6 +2087,7 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
         TcpTransportPool,
         make_sparse_client,
     )
+    from distributed_point_functions_tpu_torch.serving.prober import Prober
     from distributed_point_functions_tpu_torch.serving.service import evaluated_generation
     from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
 
@@ -1997,6 +2215,17 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
         found += value is not None
     lat = sorted(x[2] * 1e3 for x in out)
 
+    # The prober's sparse kinds on the Leader: golden keys (one of them
+    # overwritten by the write batch, one written new) and an absent key.
+    t0 = time.perf_counter()
+    overwritten = next(k for k in upserts if k.startswith(b"k"))
+    goldens = [overwritten] + [b"k%012d" % i for i in (0, SPARSE_KEYS - 1)
+                               if b"k%012d" % i != overwritten][:1]
+    prober = Prober(leader, sparse_records={k: value_of(k) for k in goldens},
+                    sparse_absent_key=b"a%012d" % 0, journal=EventJournal())
+    probes = {"before": {r["kind"]: (r["status"], r["ms"]) for r in prober.run_cycle()}}
+    steps["sparse_probe_s"] = time.perf_counter() - t0
+
     # The rotation under traffic.
     t_rot = time.perf_counter()
     managers = SnapshotManager(leader), SnapshotManager(helper)
@@ -2055,6 +2284,18 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
                 value = None
             check(q, value, 1)
     steps["written_check_s"] = time.perf_counter() - t0
+    # The sparse probes again on generation 1, the goldens rotated.
+    newest = next(k for k in upserts if k.startswith(b"n"))
+    prober.rotate_sparse_goldens({k: upserts.get(k, value_of(k)) for k in goldens + [newest]},
+                                 generation=1)
+    probes["after"] = {r["kind"]: (r["status"], r["ms"]) for r in prober.run_cycle()}
+    probes["golden_keys_after"] = [k.decode() for k in prober._sparse_keys]
+    emit({"phase": "sparse_probe", "config": "BASELINE.json configs[4], one card",
+          **probes, "device": smi_line})
+    if any(status != "pass" for when in ("before", "after")
+           for status, _ in probes[when].values()) or \
+            set(probes["after"]) != {"sparse_kv", "sparse_absent"}:
+        raise AssertionError(f"sparse_probe: {probes}")
     # Another geometry is refused before anything stages.
     small = CuckooHashedDpfPirDatabase.Builder().set_params(
         CuckooHashingSparseDpfPirServer.generate_params(1000, seed=SPARSE_SEED))
@@ -2838,6 +3079,10 @@ def serving_phase(dev, records, smi_line: str) -> None:
           "memory_allocated_before": mem_before, "memory_allocated_after": mem_after,
           "rotation_s": time.perf_counter() - t_rot,
           "phase_s": time.perf_counter() - t_phase, "device": smi_line})
+    # The prober and the admin endpoint on the same sessions, generation 1.
+    prober_phase(dev, leader, helper, leader_mgr,
+                 [gen1.get(i, records[i]) for i in range(NUM_RECORDS)], closed_loop, bound,
+                 SERVING_REQUESTS / wall_s, smi_line)
     leader_tcp.stop()
     helper_tcp.stop()
     leader.close()
@@ -2851,6 +3096,281 @@ def serving_phase(dev, records, smi_line: str) -> None:
         proc.join(timeout=30)
         if proc.exitcode != 0:
             raise AssertionError(f"serving: a client process exited {proc.exitcode}")
+
+
+PROBE_PERIOD_S = 0.5
+PROBE_MAX_DUTY = 0.05
+# A probe kind is fresh this long after its last pass: longer than a
+# cycle under the wave's load, so a scrape right after a cycle is healthy.
+PROBE_FRESHNESS_S = 5.0
+PROBE_WAVE_CHUNK = 128  # requests a closed-loop round of the prober's wave
+PROBE_WAVE_CAP_S = 90.0
+PORT_KERNELS = ("expand_level_kernel", "leaf_blocks_kernel", "path_walk_kernel",
+                "repeat_tiles_kernel", "subtree_kernel", "value_hash_kernel",
+                "xor_counts_kernel", "xor_ip_kernel")
+
+
+def prober_phase(dev, leader, helper, manager, records_now, closed_loop, bound,
+                 capacity_qps: float, smi_line: str) -> None:
+    """The blackbox prober and the admin endpoint on `serving_phase`'s TCP
+    Leader and Helper at generation 1 (`records_now`: configs[1]'s records
+    with the rotation's rows), with a workload observatory on the Leader,
+    a time-series sampler of its registry, a forecaster of the arrival
+    rate (the Leader's requests a second) against `capacity_qps` (the
+    phase's closed-loop saturation) and
+    a `BundleManager` on the prober's failure listener, all attached to
+    one `AdminServer`.
+
+    1. `prober`: one cycle of every dense kind, `leader_e2e` and
+       `hh_sweep` with no other traffic, each `ok` and launching exactly
+       its plan (`probe_want_launches`).
+    2. `prober_drill`: one word XORed into a golden record's row of every
+       staging the Leader serves: within one cycle every dense kind is a
+       `mismatch` and journaled, `/healthz` 503 once the last pass is
+       older than the window, one bundle with `statusz`, `metrics` and
+       `probes` (the admin's name for the prober's source); undone, the
+       next cycle `recovered` and `/healthz` 200. `leader_e2e` is
+       reported, not gated: the Helper's database stays clean. (Before
+       the wave, so that the wait for the window overlaps nothing.)
+    3. `prober_loop` and `admin`: the background loop during a wave of
+       the 64 clients, in rounds of PROBE_WAVE_CHUNK requests until the
+       loop's second cycle has begun and the admin scrape is done: the
+       duty cycle of the loop's complete period (a cycle's busy time
+       over the time to the next cycle's start) at or under
+       PROBE_MAX_DUTY, no probe failed, every answer its record. Every
+       admin route once (`scrape_admin`; `/healthz` right after the
+       loop's first cycle, the rest once the sampler holds 10 points):
+       each route's status and content type as ADMIN_ROUTES says,
+       `/metrics` sample lines parse as Prometheus text and hold
+       `prober_probes`, `/timeseriesz` holds samples, the forecast a
+       time-to-breach of the arrival rate, and `/profilez`'s trace names
+       a port kernel."""
+    import threading
+
+    import torch
+
+    from distributed_point_functions_tpu_torch.heavy_hitters import HeavyHittersConfig
+    from distributed_point_functions_tpu_torch.observability import (
+        AdminServer,
+        BundleManager,
+        Forecaster,
+        MetricsSampler,
+    )
+    from distributed_point_functions_tpu_torch.observability.events import EventJournal
+    from distributed_point_functions_tpu_torch.observability.utilization import (
+        default_utilization_tracker,
+    )
+    from distributed_point_functions_tpu_torch.observability.workload import (
+        WorkloadObservatory,
+    )
+    from distributed_point_functions_tpu_torch.ops import cuda_lib
+    from distributed_point_functions_tpu_torch.serving.prober import Prober
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+    from distributed_point_functions_tpu_torch.utils.profiling import TRACE_FILE
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="dpf-operator-"))
+    journal = EventJournal()
+    hh_config = HeavyHittersConfig(domain_bits=8, level_bits=4, threshold=2)
+    prober = Prober(leader, records_now, encrypter=encrypt_decrypt.encrypt,
+                    hh_values=HH_SMALL_VALUES, hh_config=hh_config,
+                    period_s=PROBE_PERIOD_S, max_duty_cycle=PROBE_MAX_DUTY,
+                    freshness_window_s=PROBE_FRESHNESS_S, journal=journal)
+    observatory = WorkloadObservatory()
+    leader.attach_workload(observatory)
+    requests = leader.metrics.histogram("leader.request_ms")
+    last = [time.monotonic(), requests.export()["count"]]
+
+    def arrival_rate():
+        """The Leader's requests a second since the last sample."""
+        now, count = time.monotonic(), requests.export()["count"]
+        rate = (count - last[1]) / max(1e-6, now - last[0])
+        last[:] = [now, count]
+        return {"leader.arrival_qps": rate}
+
+    sampler = MetricsSampler(registry=leader.metrics,
+                             utilization=default_utilization_tracker(),
+                             extra_sources=[arrival_rate], journal=journal)
+    forecaster = Forecaster(sampler.store, window_s=60.0, horizon_s=120.0, min_points=8,
+                            journal=journal)
+    forecaster.watch("leader.arrival_qps", ceiling=capacity_qps)
+    bundles = BundleManager(str(work / "bundles"), journal=journal)
+    prober.add_failure_listener(bundles.on_probe_failure)
+    admin = AdminServer(registry=leader.metrics, profile_dir=str(work), journal=journal,
+                        prober=prober, bundles=bundles, capacity=leader.capacity_accuracy,
+                        snapshots=manager, timeseries=sampler, workload=observatory,
+                        forecast=forecaster).start()
+    sampler.start()
+    base = f"http://127.0.0.1:{admin.port}"
+
+    # 1. One probe of every kind, each against its plan.
+    t0 = time.perf_counter()
+    warm = prober.run_cycle()  # also stages the generation's tier layouts
+    if any(r["status"] != "pass" for r in warm):
+        raise AssertionError(f"prober: the first cycle {warm}")
+    per_kind = {}
+    for kind in prober.kinds():
+        cuda_lib.reset_launch_counts()
+        result = prober._run_one(kind)
+        torch.cuda.synchronize()
+        got = {name: n for name, n in cuda_lib.LAUNCHES.items() if n}
+        prober._record(result)
+        want = probe_want_launches(prober, kind)
+        plan = None if kind == "hh_sweep" else probe_plan(prober, kind)[0]
+        per_kind[kind] = {"status": result["status"], "ms": result["ms"],
+                          "launches": got, "plan_launches": want,
+                          "plan": None if plan is None else {
+                              f: getattr(plan, f) for f in (
+                                  "mode", "cut_levels", "chunk_levels", "num_chunks")}}
+        if result["status"] != "pass" or got != want:
+            raise AssertionError(f"prober: {kind} {per_kind[kind]} {result['detail']}")
+    emit({"phase": "prober", "records": len(records_now), "record_bytes": RECORD_BYTES,
+          "golden_indices": prober._indices, "kinds": per_kind,
+          "first_cycle_ms": [r["ms"] for r in warm],
+          "step_s": time.perf_counter() - t0, "device": smi_line})
+
+    # 2. Wrong bits in the Leader's stagings, then undone.
+    t0 = time.perf_counter()
+    db = leader.server.database
+    row = prober._indices[0]
+    stagings = xor_staged_word(db, row, 0, 1)
+    torch.cuda.synchronize()
+    drilled = {r["kind"]: r for r in prober.run_cycle()}
+    mismatches = journal.tail(n=256, kind="prober.mismatch")
+    health = http_get(base + "/healthz")[0]
+    deadline = time.monotonic() + PROBE_FRESHNESS_S + 5.0
+    while health != 503 and time.monotonic() < deadline:
+        time.sleep(0.25)
+        health = http_get(base + "/healthz")[0]
+    made = bundles.bundles()
+    manifest = {}
+    if made and made[0].get("path"):
+        with open(Path(made[0]["path"]) / "manifest.json") as f:
+            manifest = json.load(f)
+    xor_staged_word(db, row, 0, 1)
+    torch.cuda.synchronize()
+    recovered = {r["kind"]: r["status"] for r in prober.run_cycle()}
+    recovered_events = journal.tail(n=256, kind="prober.recovered")
+    health_after = http_get(base + "/healthz")[0]
+    dense = ("pir_materialized", "pir_streaming", "pir_chunked", "pir_unbatched")
+    drill = {"phase": "prober_drill", "row": row, "stagings_changed": stagings,
+             "statuses": {k: r["status"] for k, r in drilled.items()},
+             "leader_e2e": drilled["leader_e2e"]["status"],
+             "mismatch_events": len(mismatches), "healthz_during": health,
+             "bundles": len(made), "bundle_sources": sorted(manifest.get("sources", {})),
+             "recovered": recovered, "recovered_events": len(recovered_events),
+             "healthz_after": health_after, "step_s": time.perf_counter() - t0,
+             "device": smi_line}
+    emit(drill)
+    if [drilled[k]["status"] for k in dense] != ["mismatch"] * 4 or len(mismatches) < 4:
+        raise AssertionError(f"prober_drill: {drill['statuses']}, {len(mismatches)} events")
+    if health != 503 or health_after != 200:
+        raise AssertionError(f"prober_drill: /healthz {health} then {health_after}")
+    if len(made) != 1 or not {"statusz", "metrics", "probes"} <= set(manifest["sources"]):
+        raise AssertionError(f"prober_drill: bundles {made}")
+    if any(s != "pass" for s in recovered.values()) or \
+            {e["probe_kind"] for e in recovered_events} < set(dense):
+        raise AssertionError(f"prober_drill: after the undo {recovered}")
+    # 3. The background loop during a wave, and the admin scrape.
+    def last_seq():
+        return max((r["seq"] for h in prober.export()["history"].values() for r in h),
+                   default=0)
+
+    k = len(prober.kinds())
+    seq0 = last_seq()
+    scraped = {}
+
+    def scrape():
+        """`/healthz` right after the loop's first cycle (its passes are
+        fresh), the other routes once the sampler holds 10 points of the
+        arrival rate (the forecast's history)."""
+        deadline = time.monotonic() + PROBE_WAVE_CAP_S
+        while last_seq() < seq0 + k and time.monotonic() < deadline:
+            time.sleep(0.005)
+        scraped.update(scrape_admin(admin.port, ["/healthz"]))
+        while (len(sampler.store.series("leader.arrival_qps")) < 10
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        scraped.update(scrape_admin(admin.port, [r for r in ADMIN_ROUTES if r != "/healthz"]))
+
+    scraper = threading.Thread(target=scrape)
+    prober.start()
+    t_loop = time.perf_counter()
+    scraper.start()
+    answers = []
+    # The wave lasts until the loop's second cycle has begun: one whole
+    # period (a cycle and the sleep its duty cycle forces) under load.
+    while ((scraper.is_alive() or last_seq() <= seq0 + k)
+           and time.perf_counter() - t_loop < PROBE_WAVE_CAP_S):
+        answers += closed_loop(PROBE_WAVE_CHUNK)
+    wave_s = time.perf_counter() - t_loop
+    prober.stop()
+    scraper.join(timeout=60)
+    wrong = [i for i, answer, _, _, _ in answers if answer != records_now[i]]
+    for x in answers:
+        bound.pop(x[3], None)
+    # The loop's cycles, from the probes' end times and durations.
+    results = sorted((r for h in prober.export()["history"].values() for r in h
+                      if r["seq"] > seq0), key=lambda r: r["seq"])
+    cycles = [results[i:i + k] for i in range(0, len(results) - k + 1, k)]
+    spans = [(c[0]["t_mono"] - c[0]["ms"] / 1e3, c[-1]["t_mono"],
+              sum(r["ms"] for r in c) / 1e3) for c in cycles]
+    periods = [(spans[i][2], spans[i + 1][0] - spans[i][0]) for i in range(len(spans) - 1)]
+    duty = max((busy / period for busy, period in periods), default=None)
+    failed = [r for r in results if r["status"] != "pass"]
+    loop = {"phase": "prober_loop", "clients": SERVING_PROCESSES * SERVING_THREADS,
+            "wave_requests": len(answers), "wave_s": wave_s,
+            "wave_queries_per_sec": len(answers) / wave_s, "cycles": len(cycles),
+            "cycle_ms": [(end - start) * 1e3 for start, end, _ in spans],
+            "cycle_busy_ms": [busy * 1e3 for _, _, busy in spans],
+            "periods_s": [period for _, period in periods],
+            "duty_cycle": duty, "max_duty_cycle": PROBE_MAX_DUTY,
+            "duty_cycle_over_wave": sum(b for _, _, b in spans) / wave_s,
+            "probe_ms": {kind: [r["ms"] for r in results if r["kind"] == kind]
+                         for kind in prober.kinds()},
+            "failed": len(failed), "wrong_answers": len(wrong), "device": smi_line}
+    emit(loop)
+    if wrong or failed:
+        raise AssertionError(f"prober_loop: {len(wrong)} wrong answers, failed {failed[:3]}")
+    if duty is None or duty > PROBE_MAX_DUTY:
+        raise AssertionError(f"prober_loop: duty cycle {duty} over {len(periods)} periods")
+
+    statuses = {route: scraped[route][:2] for route in ADMIN_ROUTES if route in scraped}
+    metrics_text = scraped["/metrics"][2].decode() if scraped else ""
+    samples = [line for line in metrics_text.splitlines() if line and not line.startswith("#")]
+    unparsed = [line for line in samples if not PROMETHEUS_SAMPLE.match(line)]
+    forecast = forecaster.last_run() or {}
+    rate = next((e for e in forecast.get("series", [])
+                 if e.get("series") == "leader.arrival_qps"), {})
+    trace_names = []
+    if statuses.get("/profilez", (None,))[0] == 200:
+        with open(Path(json.loads(scraped["/profilez"][2])["log_dir"]) / TRACE_FILE) as f:
+            names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+        trace_names = sorted(k for k in PORT_KERNELS if any(k in n for n in names))
+    series = sampler.store.export().get("series_count", 0)
+    admin_line = {"phase": "admin", "routes": len(scraped),
+                  "status": {r: s for r, (s, _) in statuses.items()},
+                  "metrics_samples": len(samples), "metrics_unparsed": unparsed[:5],
+                  "prober_probes_exposed": "prober_probes " in metrics_text,
+                  "timeseries_series": series,
+                  "timeseries_samples": sampler.export().get("samples_taken"),
+                  "arrival_rate_forecast": {k: rate.get(k) for k in (
+                      "state", "last", "ceiling", "time_to_breach_s",
+                      "time_to_breach_earliest_s")},
+                  "profile_kernels": trace_names, "device": smi_line}
+    emit(admin_line)
+    if statuses != ADMIN_ROUTES:
+        raise AssertionError(f"admin: {statuses}")
+    if unparsed or not samples or "prober_probes " not in metrics_text:
+        raise AssertionError(f"admin: /metrics {len(samples)} samples, unparsed {unparsed[:3]}")
+    if not series or rate.get("time_to_breach_earliest_s") is None:
+        raise AssertionError(f"admin: {series} series, arrival-rate forecast {rate}")
+    if not trace_names:
+        raise AssertionError("admin: the /profilez trace names no port kernel")
+
+    admin.stop()
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "operator_steps", "seconds": time.perf_counter() - t_phase})
 
 
 def shed_reason(message: str):
@@ -3643,6 +4163,9 @@ def main() -> int:
     hbm = next(v for k, v in HBM_BYTES_PER_S.items() if k in kind) \
         if any(k in kind for k in HBM_BYTES_PER_S) else 3.35e12
     int32_ops_per_s = props.multi_processor_count * INT32_LANES_PER_SM * max_sm_mhz * 1e6
+    from distributed_point_functions_tpu_torch.utils import get_backend_mode_string
+
+    emit({"phase": "backend", "mode": get_backend_mode_string()})
     emit({"phase": "device", "nvidia_smi": smi_line, "kind": kind,
           "sms": props.multi_processor_count, "max_sm_mhz": max_sm_mhz,
           "int32_ops_per_s": int32_ops_per_s, "hbm_bytes_per_s": hbm,
@@ -4331,7 +4854,7 @@ def main() -> int:
     dpf_value_types_phase(fss_rng, dev, full)
 
     # 7. Dense PIR's serving tiers at BASELINE configs[2].
-    tier_counts = tiers_phase(rng, dev)
+    tier_counts = tiers_phase(rng, dev, smi_line)
 
     # Sparse PIR: the small database against the plain versions, then
     # BASELINE configs[4] on one card, plain and as Leader and Helper. Its

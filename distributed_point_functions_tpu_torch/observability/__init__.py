@@ -23,6 +23,44 @@ Copied from the JAX package (`tracing`, `phases`, `events`,
   stream), and the bounded-memory traffic characterization (count-min
   sketch, top-K, Zipf fit, per-tenant arrival rate and burstiness).
 
+* `exposition`, `timeseries`, `forecast` and `bundle` (copied) -- the
+  Prometheus text format, the in-process time-series store with its
+  sampler and anomaly watch, the Holt forecaster with time-to-breach and
+  trough windows, and incident debug bundles;
+* `autoprofile` -- a `torch.profiler` capture when a latency objective
+  starts to burn;
+* `admin` -- the operator's HTTP endpoint over all of the above.
+
 The layers run serving -> observability -> utils / robustness; nothing
 here imports `pir/`, `ops/` or `serving/`.
 """
+
+from .admin import AdminServer
+from .autoprofile import AutoProfiler, capture_profile
+from .bundle import BundleManager
+from .exposition import parse_labeled_name, render_prometheus
+from .forecast import Forecaster, SeriesForecast, holt_fit
+from .timeseries import (
+    AnomalyWatch,
+    MetricsSampler,
+    TimeSeriesStore,
+    render_sparklines,
+    sparkline,
+)
+
+__all__ = [
+    "AdminServer",
+    "AnomalyWatch",
+    "AutoProfiler",
+    "BundleManager",
+    "Forecaster",
+    "MetricsSampler",
+    "SeriesForecast",
+    "TimeSeriesStore",
+    "capture_profile",
+    "holt_fit",
+    "parse_labeled_name",
+    "render_prometheus",
+    "render_sparklines",
+    "sparkline",
+]

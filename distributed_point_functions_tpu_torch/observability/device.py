@@ -362,6 +362,14 @@ class TransferLedger:
     stream. Only copies that cross the bus are counted. Phases name the
     site (`db_staging`, `db_readback`, `result_readback`). With
     `enabled=False` nothing is recorded.
+
+    Syncs are counted apart from copies: a pipelined staging issues many
+    asynchronous copies and drains them with ONE final sync, so
+    `syncs < copies` is the signature of transfers that overlapped host
+    work. `record_overlap(ms, phase)` adds the companion `overlapped_ms`:
+    host milliseconds of useful work done while copies were in flight
+    (the hidden half of the phase's transfer time; the exposed half is
+    what the final sync still waits, `sync_wait_ms`).
     """
 
     def __init__(self, registry=None, enabled: bool = True):
@@ -369,7 +377,7 @@ class TransferLedger:
         self._registry = registry
         self.enabled = enabled
         # phase -> {h2d_copies, h2d_bytes, d2h_copies, d2h_bytes,
-        #           syncs, sync_wait_ms}
+        #           syncs, sync_wait_ms, overlapped_ms}
         self._phases: Dict[str, Dict[str, float]] = {}
 
     def bind_registry(self, registry) -> None:
@@ -381,7 +389,8 @@ class TransferLedger:
     @staticmethod
     def _new_entry() -> Dict[str, float]:
         return {"h2d_copies": 0, "h2d_bytes": 0, "d2h_copies": 0,
-                "d2h_bytes": 0, "syncs": 0, "sync_wait_ms": 0.0}
+                "d2h_bytes": 0, "syncs": 0, "sync_wait_ms": 0.0,
+                "overlapped_ms": 0.0}
 
     def _add(self, phase: str, **deltas) -> None:
         if not self.enabled:
@@ -407,6 +416,13 @@ class TransferLedger:
         """One host<->device sync; `wait_ms` is the host wall time it
         blocked (the exposed half of the phase's transfer time)."""
         self._add(phase, syncs=1, sync_wait_ms=max(0.0, float(wait_ms)))
+
+    def record_overlap(self, ms: float, phase: str) -> None:
+        """Credit `ms` of host work done while transfers of `phase` were
+        in flight (the hidden half of the phase's transfer time)."""
+        ms = float(ms)
+        if ms > 0.0:
+            self._add(phase, overlapped_ms=ms)
 
     # -- counted sync -------------------------------------------------------
 
@@ -442,6 +458,10 @@ class TransferLedger:
     def sync_wait_ms(self, phase: Optional[str] = None) -> float:
         return self._sum("sync_wait_ms", phase)
 
+    def overlapped_ms(self, phase: Optional[str] = None) -> float:
+        """Milliseconds of transfer time hidden behind host work."""
+        return self._sum("overlapped_ms", phase)
+
     def export(self) -> dict:
         with self._lock:
             phases = {p: dict(e) for p, e in sorted(self._phases.items())}
@@ -449,9 +469,10 @@ class TransferLedger:
         for entry in phases.values():
             for k in totals:
                 totals[k] += entry[k]
-        totals["sync_wait_ms"] = round(totals["sync_wait_ms"], 3)
-        for entry in phases.values():
-            entry["sync_wait_ms"] = round(entry["sync_wait_ms"], 3)
+        for ms_key in ("overlapped_ms", "sync_wait_ms"):
+            totals[ms_key] = round(totals[ms_key], 3)
+            for entry in phases.values():
+                entry[ms_key] = round(entry[ms_key], 3)
         return {"enabled": self.enabled, "totals": totals,
                 "phases": phases}
 

@@ -6,7 +6,8 @@ zero-padded to the maximum record size, the record count padded to a
 multiple of 128 so whole selection blocks line up with rows. The device
 holds ONE staging of it, in the bit-major layout K1 and K7 read
 (`ops/inner_product_kernels.py:permute_db_bitmajor`), built once under a
-lock at first use; the host image is dropped once it is staged. A
+lock at first use, in slabs that cross the bus while the host fills the
+next one (`stage_bitmajor`); the host image is dropped once it is staged. A
 staging is published only once the stream that built it has finished
 it, so a batch worker on another stream never reads a half-built one.
 
@@ -52,7 +53,6 @@ from ..device import resolve_device
 from ..observability.device import default_telemetry
 from ..ops.inner_product_kernels import (
     MAX_RECORDS_EXACT,
-    permute_db_bitmajor,
     rows_from_bitmajor,
     stage_db_chunks_bitmajor,
     xor_inner_product_staged,
@@ -118,6 +118,99 @@ def records_to_rows(records: Sequence[bytes], num_rows: int, row_bytes: int) -> 
 
 def _pack_records(records: Sequence[bytes], num_padded: int, record_bytes: int):
     return records_to_rows(records, num_padded, record_bytes).view("<u4").astype(np.uint32)
+
+
+# A staging from the host image moves in at most this many slabs (the
+# JAX package's `min(8, rows // 128)`), each a run of whole tiles of
+# TILE_RECORDS records, the granule of the bit-major staging.
+MAX_STAGING_SLABS = 8
+TILE_RECORDS = 4096
+
+
+def slab_spans(num_records: int, slabs: int = MAX_STAGING_SLABS) -> List[tuple]:
+    """The record spans [a, b) of a staging's slabs: the TILE_RECORDS
+    tiles covering `num_records`, cut into min(slabs, tiles) runs of
+    near-equal length. The last span may reach past `num_records`: its
+    rows there are the staging's zero padding."""
+    tiles = max(1, -(-num_records // TILE_RECORDS))
+    n = min(slabs, tiles)
+    edges = [tiles * i // n * TILE_RECORDS for i in range(n + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def stage_bitmajor(host: np.ndarray, device, slabs: int = MAX_STAGING_SLABS) -> torch.Tensor:
+    """The bit-major staging int32[32, G, W] of a host image uint32[R, W]
+    (R a multiple of 32; G = 128 * ceil(R / 4096)), equal to
+    `permute_db_bitmajor(to_tensor(host, device))`, built slab by slab
+    (`slab_spans`): the records [a, b) of a slab land at [:, a/32 : b/32].
+    The device never holds a row-major image of the whole database: the
+    peak is the staging and two slabs.
+
+    On a CUDA device each slab is copied into one of two pinned host
+    buffers, then to the card with `copy_(non_blocking=True)` on a copy
+    stream of its own, and permuted on the current stream straight into
+    its groups of the staging. CUDA events order each permute after its
+    copy and each buffer's reuse after the work that last read it; while
+    slab s crosses the bus the host fills the other buffer with slab s+1.
+    The ledger counts one `db_staging` copy a slab and, as
+    `overlapped_ms`, the host's milliseconds from the first copy's issue
+    to the return, less the time it waited for a buffer. Returns without
+    a sync: the caller's one final sync publishes the staging. On the CPU
+    the same slabs are assembled with plain copies."""
+    host = np.ascontiguousarray(host, dtype=np.uint32)
+    num_records, width = host.shape
+    if num_records % 32:
+        raise ValueError(f"the host image has {num_records} rows, not a multiple of 32")
+    spans = slab_spans(num_records, slabs)
+    src = torch.from_numpy(host.view(np.int32))
+    staged = torch.empty((32, spans[-1][1] // 32, width), dtype=torch.int32, device=device)
+
+    def permute_into(rows: torch.Tensor, a: int, b: int) -> None:
+        have = rows.shape[0]
+        staged[:, a // 32:(a + have) // 32] = rows.view(-1, 32, width).permute(1, 0, 2)
+        staged[:, (a + have) // 32:b // 32] = 0
+
+    def filled(a: int, b: int) -> int:
+        return max(0, min(b, num_records) - a)
+
+    if device.type != "cuda":
+        for a, b in spans:
+            permute_into(src[a:a + filled(a, b)], a, b)
+        return staged
+    ledger = default_telemetry().transfers
+    rows = max(b - a for a, b in spans)
+    pinned = [torch.empty((rows, width), dtype=torch.int32, pin_memory=True)
+              for _ in range(2)]
+    landed = [torch.empty((rows, width), dtype=torch.int32, device=device)
+              for _ in range(2)]
+    compute = torch.cuda.current_stream(device)
+    copier = torch.cuda.Stream(device)
+    copier.wait_stream(compute)  # the buffers' memory may be a freed tensor's
+    copied = [None, None]  # the copy out of pinned[i] into landed[i] is done
+    permuted = [None, None]  # the permute out of landed[i] is done
+    t_first, waited = None, 0.0
+    for s, (a, b) in enumerate(spans):
+        i, have = s % 2, filled(a, b)
+        if copied[i] is not None:
+            t0 = time.perf_counter()
+            copied[i].synchronize()
+            waited += time.perf_counter() - t0
+        pinned[i][:have].copy_(src[a:a + have])
+        with torch.cuda.stream(copier):
+            if permuted[i] is not None:
+                copier.wait_event(permuted[i])
+            landed[i][:have].copy_(pinned[i][:have], non_blocking=True)
+            copied[i] = torch.cuda.Event()
+            copied[i].record(copier)
+        ledger.record_h2d(have * width * 4, "db_staging")
+        if t_first is None:
+            t_first = time.perf_counter()
+        compute.wait_event(copied[i])
+        permute_into(landed[i][:have], a, b)
+        permuted[i] = torch.cuda.Event()
+        permuted[i].record(compute)
+    ledger.record_overlap((time.perf_counter() - t_first - waited) * 1e3, "db_staging")
+    return staged
 
 
 def padded_records(size: int) -> int:
@@ -344,14 +437,12 @@ class DenseDpfPirDatabase:
                     moved = self._delta_rows.nbytes + self._delta_words.nbytes
                     staged = base_perm.clone()
                     staged[rows % 32, rows // 32] = values
+                if self._device.type == "cuda":
+                    default_telemetry().transfers.record_h2d(moved, "db_staging")
             else:
                 host = self.host_rows()
-                rows = to_tensor(host, self._device)
                 moved = host.nbytes
-                staged = permute_db_bitmajor(rows)
-                del rows
-            if self._device.type == "cuda":
-                default_telemetry().transfers.record_h2d(moved, "db_staging")
+                staged = stage_bitmajor(host, self._device)
             self._db_perm = self._publish(staged)
         self._host_words = None
         self._delta_base = None

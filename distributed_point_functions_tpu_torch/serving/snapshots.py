@@ -8,10 +8,11 @@ scatters in only the updated rows (`last_prestage_stats["mode"] ==
 has read its result back. A server with `validate_snapshot` (the
 sparse one) decides what may be staged; its refusal is a
 `SnapshotMismatch`. A flip's drain wait is a `snapshot_flip` bubble of
-the process-wide utilization tracker. Not carried: debug-bundle capture
-on a mismatch and the forecast window source (their modules are not
-ported yet), and the prober's `pin()` and flip listeners (they come
-with `serving/prober.py`).
+the process-wide utilization tracker. The prober pins a manager around
+each probe (`pin()`) and re-keys its goldens on each flip
+(`add_flip_listener`); `RotationCoordinator.suggest_window` reads a
+forecast's trough window. Not carried: the debug-bundle capture on a
+refused cross-generation answer.
 
 Every session used to stage one immutable `DenseDpfPirDatabase` at
 construction and serve it forever. A directory changes continuously,
@@ -58,9 +59,10 @@ single commit point and everything before it is droppable staging.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
-from typing import Optional
+from typing import Callable, List, Optional
 
 from ..observability import events as events_mod
 from ..observability.utilization import default_utilization_tracker
@@ -141,6 +143,8 @@ class SnapshotManager:
         self._inflight: dict = {}
         # Retired generations still owed a drain: generation -> db.
         self._retired: dict = {}
+        self._pins = 0
+        self._flip_listeners: List[Callable] = []
         self._history: collections.deque = collections.deque(
             maxlen=max(1, history)
         )
@@ -175,6 +179,13 @@ class SnapshotManager:
             journal.emit(kind, message, severity=severity, **fields)
         except Exception:  # noqa: BLE001 - journaling never breaks rotation
             pass
+
+    def add_flip_listener(self, listener: Callable[[dict], None]) -> None:
+        """Register `listener(flip_record)`, called after every applied
+        flip outside the manager lock (the prober re-keys its golden
+        pairs here). Exceptions are swallowed."""
+        with self._cond:
+            self._flip_listeners.append(listener)
 
     # -- staging ------------------------------------------------------------
 
@@ -231,11 +242,11 @@ class SnapshotManager:
 
     def begin_batch(self) -> int:
         """Called by the batcher worker before every evaluation: apply
-        a pending flip first, then bind the batch to the now-serving
-        generation."""
+        a pending flip first (unless pinned readers hold it off), then
+        bind the batch to the now-serving generation."""
         fired = None
         with self._cond:
-            if self._pending_flip:
+            if self._pending_flip and self._pins == 0:
                 fired = self._apply_flip_locked()
             gen = self._server.database.generation
             self._inflight[gen] = self._inflight.get(gen, 0) + 1
@@ -279,6 +290,21 @@ class SnapshotManager:
             bytes_freed=nbytes,
         )
 
+    @contextlib.contextmanager
+    def pin(self):
+        """Bracket an unbatched multi-step read (one prober probe pair):
+        a pending flip is not applied while any pin is held, so
+        everything inside sees one generation. Yields that generation."""
+        with self._cond:
+            self._pins += 1
+            gen = self._server.database.generation
+        try:
+            yield gen
+        finally:
+            with self._cond:
+                self._pins -= 1
+                self._cond.notify_all()
+
     # -- flipping -----------------------------------------------------------
 
     def flip(self, timeout: float = 10.0) -> dict:
@@ -286,7 +312,7 @@ class SnapshotManager:
         party is idle, otherwise armed and applied by the batcher
         worker at the next batch boundary (this call waits for it).
         Returns the flip-history record. Raises `TimeoutError` (after
-        disarming) if in-flight work never drains — the staged
+        disarming) if in-flight work or pins never drain — the staged
         generation stays staged and N keeps serving."""
         failpoints.fire("snapshot.flip")
         fired = None
@@ -298,7 +324,8 @@ class SnapshotManager:
             self._pending_flip = True
             deadline = time.monotonic() + max(0.0, timeout)
             while self._server.database.generation != target:
-                if self._pending_flip and not any(self._inflight.values()):
+                if self._pending_flip and self._pins == 0 and not any(
+                        self._inflight.values()):
                     fired = self._apply_flip_locked()
                     break
                 remaining = deadline - time.monotonic()
@@ -306,7 +333,7 @@ class SnapshotManager:
                     self._pending_flip = False
                     raise TimeoutError(
                         f"flip to generation {target} timed out after "
-                        f"{timeout:.1f}s (inflight="
+                        f"{timeout:.1f}s (pins={self._pins}, inflight="
                         f"{sum(self._inflight.values())})"
                     )
                 t_wait = time.monotonic()
@@ -352,8 +379,10 @@ class SnapshotManager:
         return record
 
     def _after_flip(self, record: dict) -> None:
-        """Post-commit work that runs outside the manager lock: freeing
-        an idle old generation, and the journal line."""
+        """Post-commit work that runs outside the manager lock (a
+        listener may submit to the batcher, whose worker needs
+        `begin_batch`): freeing an idle old generation, the journal
+        line, and the flip listeners."""
         if record.get("old_freed") == "immediate":
             with self._cond:
                 db = self._retired.pop(record["from_generation"], None)
@@ -367,6 +396,13 @@ class SnapshotManager:
             from_generation=record["from_generation"],
             to_generation=record["to_generation"],
         )
+        with self._cond:
+            listeners = list(self._flip_listeners)
+        for listener in listeners:
+            try:
+                listener(dict(record))
+            except Exception:  # noqa: BLE001 - listeners must not break flips
+                pass
 
     def note_staleness(self, staleness_ms: float) -> None:
         """Stamp the Helper->Leader flip gap (measured by the
@@ -451,6 +487,7 @@ class SnapshotManager:
                     if self._staging is not None else None
                 ),
                 "pending_flip": self._pending_flip,
+                "pins": self._pins,
                 "inflight": {
                     str(g): n for g, n in sorted(self._inflight.items())
                 },
@@ -483,6 +520,36 @@ class RotationCoordinator:
         self._leader = leader
         self._helper = helper
         self._clock = clock
+        self._window_source = None
+
+    def set_window_source(self, source) -> None:
+        """Attach a forecast trough finder: a `window_s -> dict` callable
+        (in practice `observability.forecast.Forecaster.window_source(
+        series)`) whose dict carries at least `start_offset_s`. None
+        detaches."""
+        self._window_source = source
+
+    def suggest_window(self, window_s: float = 30.0) -> dict:
+        """When should the next rotation prestage start? With a window
+        source attached, the forecast's lowest-load window inside its
+        horizon; without one, or when the source raises, now. Advisory
+        only: `rotate()` never waits on it."""
+        suggestion = {
+            "window_s": float(window_s),
+            "start_offset_s": 0.0,
+            "source": "none",
+        }
+        if self._window_source is None:
+            return suggestion
+        try:
+            trough = self._window_source(window_s) or {}
+        except Exception:  # noqa: BLE001 - advice must not break rotation
+            suggestion["source"] = "error"
+            return suggestion
+        suggestion.update(trough)
+        suggestion["window_s"] = float(window_s)
+        suggestion["source"] = "forecast"
+        return suggestion
 
     def rotate(
         self,

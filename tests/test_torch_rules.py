@@ -9,8 +9,9 @@
 * No `try` on the port's serving path or in its DPF/DCF evaluation gives
   way to a plain version; the sparse database's cuckoo build has no `try`
   and reads no environment variable (SHA256 runs the native build); the
-  serving runtime (`serving/`, `observability/`, `robustness/`, `utils/`)
-  reads none either, and its sessions default to the card.
+  serving runtime (`serving/`, `observability/`, `robustness/`, `utils/`,
+  the prober and the operator's admin surface included) reads none
+  either, and its sessions default to the card.
 * The launch counters lose no count when threads launch at once.
 * Heavy hitters (`heavy_hitters/`, and the `capacity/model.py`,
   `capacity/calibration.py`,
@@ -62,7 +63,10 @@ SERVING_MODULES = (
     "observability.events", "observability.phases",
     "observability.propagation", "observability.tracing", "robustness",
     "robustness.breaker", "robustness.failpoints", "utils",
-    "utils.profiling",
+    "utils.profiling", "utils.runtime", "serving.prober", "observability.admin",
+    "observability.autoprofile", "observability.bundle",
+    "observability.exposition", "observability.forecast",
+    "observability.timeseries",
 )
 # Private heavy hitters and the modules it brings (dotted, under the port).
 HH_MODULES = (
