@@ -139,6 +139,27 @@ non-zero before printing a result. Phases, one JSON line each:
    type as `ADMIN_ROUTES`, `/metrics` parsing as Prometheus text, a
    forecast time-to-breach of the arrival rate, a `/profilez` trace
    naming a port kernel).
+   Then `fleet` (`fleet_phase`): three such Leader/Helper pairs on the
+   card, each party over its own database with its own
+   `SnapshotManager`, in a `ReplicaSet` behind a `FleetRouter`, one
+   telemetry scope a replica in a `FleetTelemetry`; 12 tenant threads of
+   this process send 1,024 one-query `LeaderRequest`s closed loop through
+   the router: every answer its generation's record, each party's
+   launches its batches' plans, q/s, p50 / p99, requests a replica, the
+   fleet's duty cycle beside the card's busy share. `fleet_spillover`
+   (the busiest replica's admission sheds everything: spillovers within
+   one generation), `fleet_rotation` x3 (a quorum of 2, each wave closed
+   loop with no think time: a 64-row delta under tenants that pick their
+   replica and ask its Leader, as `benchmarks/fleet_bench.py`'s do,
+   staleness; a laggard shed, converged and readmitted under tenants
+   through the router, whose pins hold every flip off; `QuorumFailed`
+   with nothing flipped), `fleet_probe` (the
+   `CrossReplicaProbe` passes, catches a wrong word in one replica's
+   staging with a bundle, passes again), `fleet_breaker` (each Leader's
+   breaker opened by a failing Helper leg drains its replica, closed
+   restores it) and `fleet_admin` (`FLEET_ADMIN_ROUTES`; every replica's
+   breaker transitions and flips on `/fleet-timelinez`, each with its
+   replica's id).
 6. The DPF and DCF paths, each run with every launch count set to 0
    just before it and checked just after:
    - `dcf`: `DistributedComparisonFunction.create(32, IntType(64))`,
@@ -290,7 +311,9 @@ non-zero before printing a result. Phases, one JSON line each:
    - `sparse_serving` (`sparse_serving_phase`): sparse Leader and
      Helper sessions over TCP on that database and a replica, 64
      one-lookup clients, then a 4,096-upsert write batch rotated in
-     under traffic as a delta of the touched bucket rows; `sparse_probe`:
+     under traffic as a delta of the touched bucket rows (the card's
+     allocated bytes, after the drain, moved as the stagings held
+     moved, within 2 MiB); `sparse_probe`:
      the prober's `sparse_kv` and `sparse_absent` on the Leader, `ok`
      before the rotation and after it with the goldens rotated.
    Then private heavy hitters (its own generator), each party's launches
@@ -1312,6 +1335,38 @@ def tier_launches(plan, mode: str, key_groups: int) -> dict:
     return {name: 2 * n for name, n in per_party.items() if n}
 
 
+def bucket_batches(session, party: str) -> dict:
+    """{bucket: batches} from a session's `<party>.batcher.bucket_batches`
+    counters."""
+    prefix = f"{party}.batcher.bucket_batches{{bucket="
+    return {int(k[len(prefix):-1]): v for k, v in session.metrics.export()["counters"].items()
+            if k.startswith(prefix)}
+
+
+def launch_mark(session, party: str) -> tuple:
+    """What `planned_launches` counts from: a session's batches by bucket
+    and its own launches."""
+    return bucket_batches(session, party), dict(session.launches)
+
+
+def planned_launches(session, party: str, before: tuple) -> tuple:
+    """Since `before` (`launch_mark`): the batches `session` formed by
+    bucket, the launches their plans give (`tier_launches`, one party's
+    half), and the launches it made; counts of 0 are left out."""
+    batches0, launches0 = before
+    formed = {b: n - batches0.get(b, 0) for b, n in bucket_batches(session, party).items()
+              if n - batches0.get(b, 0)}
+    server = getattr(session.server, "dense_server", session.server)
+    want = {}
+    for b, n in formed.items():
+        for name, c in tier_launches(server._plan_serving(b), server.expansion,
+                                     -(-b // 32)).items():
+            want[name] = want.get(name, 0) + n * c // 2
+    got = {name: c - launches0.get(name, 0) for name, c in session.launches.items()
+           if c - launches0.get(name, 0)}
+    return formed, want, got
+
+
 # What each admin route answers (status, content type) with the
 # attachments of `serving_phase`'s admin step: a registry, a prober,
 # bundles, the capacity accuracy export, snapshots, a time-series
@@ -1342,6 +1397,31 @@ ADMIN_ROUTES = {
     "/profilez": (200, _JSON),
 }
 ADMIN_PROFILE_MS = 200
+
+# What each admin route answers (status, content type) with the
+# attachments of `fleet_phase`'s admin step: a `ReplicaSet`, a
+# `FleetTelemetry`, the fleet's registry and time-series store, bundles,
+# its journal and a profile directory. A CPU test holds it equal to the
+# JAX package's `AdminServer` with the same attachments.
+FLEET_ADMIN_ROUTES = {
+    **ADMIN_ROUTES,
+    "/healthz": (200, _TEXT),
+    "/probez": (404, _TEXT),
+    "/capacityz": (404, _TEXT),
+    "/workloadz": (404, _TEXT),
+    "/forecastz": (404, _TEXT),
+    "/fleetz": (200, _JSON),
+    "/fleet-statusz": (200, _TEXT),
+    "/fleet-timelinez": (200, _TEXT),
+}
+
+
+def fleet_admin(admin_cls, bundles, replica_set, telemetry, journal, profile_dir):
+    """An `admin_cls` (`AdminServer`) on port 0 with the fleet's
+    attachments (FLEET_ADMIN_ROUTES says what each route answers)."""
+    return admin_cls(port=0, fleet=replica_set, fleet_telemetry=telemetry,
+                     registry=telemetry.registry, timeseries=telemetry.store,
+                     bundles=bundles, journal=journal, profile_dir=profile_dir)
 # One Prometheus text sample line: a name, labels, a value, an optional
 # timestamp and an optional OpenMetrics exemplar.
 PROMETHEUS_SAMPLE = re.compile(
@@ -1477,6 +1557,22 @@ def probe_want_launches(prober, kind: str) -> dict:
         return want
     plan, keys = probe_plan(prober, kind)
     return tier_launches(plan, prober._session.server.expansion, -(-keys // 32))
+
+
+def held_staging_bytes(dbs) -> int:
+    """Device bytes of the stagings the dense or sparse databases `dbs`
+    hold, a tensor that several share (a `replica()`) counted once."""
+    seen = {}
+    for db in dbs:
+        dense = getattr(db, "dense_database", db)
+        with dense._stage_lock:
+            tensors = [dense._db_perm,
+                       dense._streaming[1] if dense._streaming is not None else None,
+                       dense._chunked[1] if dense._chunked is not None else None]
+        for t in tensors:
+            if t is not None:
+                seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
 
 
 def xor_staged_word(db, row: int, word: int, value: int) -> int:
@@ -2062,8 +2158,11 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
     (8 + the row's bytes), the dense delta's count), every answer is its key's in
     the generation its Leader share bound to (the Leader refuses a Helper
     share of another), every written key reads its new value after the
-    flip, and a database of another geometry is refused with
-    `SnapshotMismatch`. Prints the `sparse_serving` line."""
+    flip, `torch.cuda.memory_allocated` after the old generation drained
+    has moved within 2 MiB of what the stagings held moved (generation
+    0's parties share one staging, generation 1's hold one each), and a
+    database of another geometry is refused with `SnapshotMismatch`.
+    Prints the `sparse_serving` line."""
     import multiprocessing
     import threading
 
@@ -2172,40 +2271,20 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
             raise AssertionError(f"sparse_serving: key {q!r} is not its generation "
                                  f"{generation} value")
 
-    def batches():
-        out = {}
-        for name, session in (("leader", leader), ("helper", helper)):
-            counters = session.metrics.export()["counters"]
-            prefix = f"{name}.batcher.bucket_batches{{bucket="
-            out[name] = {int(k[len(prefix):-1]): v for k, v in counters.items()
-                         if k.startswith(prefix)}
-        return out
-
     t0 = time.perf_counter()
     closed_loop(2 * SPARSE_SERVING_PROCESSES * SPARSE_SERVING_THREADS)  # warm-up
     torch.cuda.synchronize()
     steps["warmup_s"] = time.perf_counter() - t0
     parties = (("leader", leader), ("helper", helper))
-    before, own_before = batches(), {p: s.launches for p, s in parties}
+    before = {p: launch_mark(s, p) for p, s in parties}
     t0 = time.perf_counter()
     out = closed_loop(SPARSE_SERVING_REQUESTS)
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    after = batches()
     steps["closed_loop_s"] = wall_s
     launches = {}
     for party, session in parties:
-        formed = {b: n - before[party].get(b, 0) for b, n in after[party].items()
-                  if n - before[party].get(b, 0)}
-        want = {}
-        for b, n in formed.items():
-            plan = session.server.dense_server._plan_serving(b)
-            for name, c in tier_launches(plan, session.server.dense_server.expansion,
-                                         -(-b // 32)).items():
-                want[name] = want.get(name, 0) + n * c // 2
-        own = session.launches
-        got = {name: c - own_before[party].get(name, 0) for name, c in own.items()
-               if c - own_before[party].get(name, 0)}
+        formed, want, got = planned_launches(session, party, before[party])
         if got != want:
             raise AssertionError(f"sparse_serving: {party} launched {got}, its plans {want}")
         launches[party] = {"launches": got, "batches_by_bucket": formed}
@@ -2230,6 +2309,8 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
     t_rot = time.perf_counter()
     managers = SnapshotManager(leader), SnapshotManager(helper)
     torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    held_before = held_staging_bytes([db, hdb])  # the Helper's a replica: one staging
     report, flipped = {}, [None]
 
     def rotate():
@@ -2245,6 +2326,9 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
     rotator.join()
     if flipped[0] is None:
         raise AssertionError("sparse_serving: the rotation did not finish")
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated(dev)
+    held_after = held_staging_bytes(gen1)
     counts, after_flip = {0: 0, 1: 0}, 0
     for q, value, _, digest, sent in wave:
         generation = bound.pop(digest)
@@ -2271,6 +2355,11 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
             raise AssertionError(f"sparse_serving: {party} drains {state['drains']}")
     if db.staged_bytes() or hdb.staged_bytes():
         raise AssertionError("sparse_serving: generation 0 still holds its staging")
+    if abs((mem_after - mem_before) - (held_after - held_before)) > 2 << 20:
+        raise AssertionError(
+            f"sparse_serving: memory_allocated {mem_after} after the drain, "
+            f"{mem_before} before the rotation; the stagings held {held_after} "
+            f"after, {held_before} before")
     steps["rotation_s"] = time.perf_counter() - t_rot
     # Every written key reads its new value.
     t0 = time.perf_counter()
@@ -2338,6 +2427,8 @@ def sparse_serving_phase(db, params, value_of, dev, smi_line: str) -> None:
           "bytes_saved": {p: s["last_stage"]["bytes_saved"] for p, s in stages.items()},
           "bytes_full_image": stages["leader"]["last_stage"]["bytes_full_image"],
           "bytes_freed": {p: s["drains"][0]["bytes_freed"] for p, s in stages.items()},
+          "memory_allocated_before": mem_before, "memory_allocated_after": mem_after,
+          "stagings_held_before": held_before, "stagings_held_after": held_after,
           "mismatch_retries": counters.get("leader.snapshot_retries", 0),
           "snapshot_mismatches": counters.get("leader.snapshot_mismatches", 0),
           "written_keys_checked": len(written), "geometry_refused": refused[:160],
@@ -2891,51 +2982,26 @@ def serving_phase(dev, records, smi_line: str) -> None:
             raise AssertionError(f"serving: {len(out)} answers of {total}")
         return out
 
-    def batches():
-        """{party: {bucket: batches}} from the sessions' counters."""
-        out = {}
-        for name, session in (("leader", leader), ("helper", helper)):
-            counters = session.metrics.export()["counters"]
-            prefix = f"{name}.batcher.bucket_batches{{bucket="
-            out[name] = {int(k[len(prefix):-1]): v for k, v in counters.items()
-                         if k.startswith(prefix)}
-        return out
-
-    def plan_launches(server, counts):
-        """Launches of the batches formed, bucket by bucket, per its plan."""
-        want = {}
-        for b, n in counts.items():
-            per_two = tier_launches(server._plan_serving(b), server.expansion, -(-b // 32))
-            for name, c in per_two.items():
-                want[name] = want.get(name, 0) + n * c // 2
-        return want
-
     t0 = time.perf_counter()
     closed_loop(2 * SERVING_PROCESSES * SERVING_THREADS)  # warm-up
     torch.cuda.synchronize()
     steps["warmup_s"] = time.perf_counter() - t0
     parties = (("leader", leader), ("helper", helper))
-    before = batches()
-    own_before = {p: s.launches for p, s in parties}
+    before = {p: launch_mark(s, p) for p, s in parties}
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     out = closed_loop(SERVING_REQUESTS)
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     got = dict(cuda_lib.LAUNCHES)
-    after = batches()
     steps["closed_loop_s"] = wall_s
-    formed = {p: {b: n - before[p].get(b, 0) for b, n in after[p].items()
-                  if n - before[p].get(b, 0)} for p in after}
     # Each party's own launches (counted on its batch worker) against the
     # plans of its own batches, and all the process's against their sum.
-    want, per_party = {}, {}
+    formed, want, per_party = {}, {}, {}
     for party, session in parties:
-        own = session.launches
-        per_party[party] = {name: own.get(name, 0) - own_before[party].get(name, 0)
-                            for name in got}
-        planned = plan_launches(session.server, formed[party])
-        if per_party[party] != {name: planned.get(name, 0) for name in got}:
+        formed[party], planned, per_party[party] = planned_launches(session, party,
+                                                                    before[party])
+        if per_party[party] != planned:
             raise AssertionError(f"serving: {party} launched {per_party[party]}, "
                                  f"its batches' plans {planned}")
         for name, n in planned.items():
@@ -3104,7 +3170,11 @@ PROBE_MAX_DUTY = 0.05
 # cycle under the wave's load, so a scrape right after a cycle is healthy.
 PROBE_FRESHNESS_S = 5.0
 PROBE_WAVE_CHUNK = 128  # requests a closed-loop round of the prober's wave
-PROBE_WAVE_CAP_S = 90.0
+PROBE_WAVE_CAP_S = 90.0  # for the loop's first cycle under the wave
+# Past the second cycle's promised start (the first cycle's end and the
+# sleep its duty cycle forces), and the wave's limit in all.
+PROBE_WAVE_SLACK_S = 20.0
+PROBE_WAVE_MAX_S = 240.0
 PORT_KERNELS = ("expand_level_kernel", "leaf_blocks_kernel", "path_walk_kernel",
                 "repeat_tiles_kernel", "subtree_kernel", "value_hash_kernel",
                 "xor_counts_kernel", "xor_ip_kernel")
@@ -3293,17 +3363,32 @@ def prober_phase(dev, leader, helper, manager, records_now, closed_loop, bound,
             time.sleep(0.05)
         scraped.update(scrape_admin(admin.port, [r for r in ADMIN_ROUTES if r != "/healthz"]))
 
+    def wave_deadline():
+        """The wave's end on the prober's clock: PROBE_WAVE_CAP_S for the
+        loop's first cycle, then the second cycle's promised start (the
+        first cycle's end and the sleep its duty cycle forces, so a slow
+        host lengthens the period and not the gate) and
+        PROBE_WAVE_SLACK_S, never past PROBE_WAVE_MAX_S."""
+        first = [r for h in prober.export()["history"].values() for r in h
+                 if seq0 < r["seq"] <= seq0 + k]
+        if len(first) < k:
+            return t_loop + PROBE_WAVE_CAP_S
+        start = min(r["t_mono"] - r["ms"] / 1e3 for r in first)
+        end = max(r["t_mono"] for r in first)
+        promised = end + (end - start) * (1.0 / PROBE_MAX_DUTY - 1.0)
+        return min(promised + PROBE_WAVE_SLACK_S, t_loop + PROBE_WAVE_MAX_S)
+
     scraper = threading.Thread(target=scrape)
     prober.start()
-    t_loop = time.perf_counter()
+    t_loop = time.monotonic()
     scraper.start()
     answers = []
     # The wave lasts until the loop's second cycle has begun: one whole
     # period (a cycle and the sleep its duty cycle forces) under load.
     while ((scraper.is_alive() or last_seq() <= seq0 + k)
-           and time.perf_counter() - t_loop < PROBE_WAVE_CAP_S):
+           and time.monotonic() < wave_deadline()):
         answers += closed_loop(PROBE_WAVE_CHUNK)
-    wave_s = time.perf_counter() - t_loop
+    wave_s = time.monotonic() - t_loop
     prober.stop()
     scraper.join(timeout=60)
     wrong = [i for i, answer, _, _, _ in answers if answer != records_now[i]]
@@ -3320,6 +3405,7 @@ def prober_phase(dev, leader, helper, manager, records_now, closed_loop, bound,
     failed = [r for r in results if r["status"] != "pass"]
     loop = {"phase": "prober_loop", "clients": SERVING_PROCESSES * SERVING_THREADS,
             "wave_requests": len(answers), "wave_s": wave_s,
+            "wave_limit_s": wave_deadline() - t_loop,
             "wave_queries_per_sec": len(answers) / wave_s, "cycles": len(cycles),
             "cycle_ms": [(end - start) * 1e3 for start, end, _ in spans],
             "cycle_busy_ms": [busy * 1e3 for _, _, busy in spans],
@@ -3333,7 +3419,9 @@ def prober_phase(dev, leader, helper, manager, records_now, closed_loop, bound,
     if wrong or failed:
         raise AssertionError(f"prober_loop: {len(wrong)} wrong answers, failed {failed[:3]}")
     if duty is None or duty > PROBE_MAX_DUTY:
-        raise AssertionError(f"prober_loop: duty cycle {duty} over {len(periods)} periods")
+        raise AssertionError(
+            f"prober_loop: duty cycle {duty} over {len(periods)} periods; cycles busy "
+            f"{loop['cycle_busy_ms']} ms, the wave {wave_s:.1f} of {loop['wave_limit_s']:.1f} s")
 
     statuses = {route: scraped[route][:2] for route in ADMIN_ROUTES if route in scraped}
     metrics_text = scraped["/metrics"][2].decode() if scraped else ""
@@ -3604,7 +3692,7 @@ def overload_phase(dev, ldb, hdb, current, closed_loop, pipes, serving_qps: floa
     for level in (1, 2, 3, 4, 0):
         ladder.force_level(level)
         floor = {0: 0, 1: 1, 2: 1, 3: 1, 4: 2}[level]
-        own = {p: s.launches for p, s in parties}
+        own = {p: launch_mark(s, p) for p, s in parties}
         n_served = 0
         for tenant, priority in served.items():
             got, reason = ask(tenant)
@@ -3616,19 +3704,15 @@ def overload_phase(dev, ldb, hdb, current, closed_loop, pipes, serving_qps: floa
                  "min_priority": leader.admission.min_priority,
                  "batch_cap": leader.batcher.batch_cap, "tier_floor": server_mod.tier_floor()}
         plan = leader.server._plan_serving(1)
-        want = {n: n_served * c // 2 for n, c in tier_launches(
-            plan, leader.server.expansion, 1).items()}
         for party, session in parties:
-            got = {n: c - own[party].get(n, 0) for n, c in session.launches.items()
-                   if c - own[party].get(n, 0)}
-            if got != want:
-                raise AssertionError(f"overload: level {level}, {party} launched {got}, "
-                                     f"the {plan.mode} plan {want}")
+            formed, want, got = planned_launches(session, party, own[party])
+            if got != want or formed != {1: n_served}:
+                raise AssertionError(f"overload: level {level}, {party} launched {got} "
+                                     f"in batches {formed}, the {plan.mode} plan {want}")
         entry["plan"] = plan.mode
         entry["launches_a_party"] = want
         if level == 2:
-            prefix = "leader.batcher.bucket_batches{bucket="
-            b0 = {k: v for k, v in counters().items() if k.startswith(prefix)}
+            b0 = bucket_batches(leader, "leader")
             # As many clients as keep the queue's priced cost under the
             # budget at the recalibrated price.
             burst_threads = max(1, int(0.8 * OVERLOAD_BUDGET_MS / model.price_pir_keys(
@@ -3637,9 +3721,8 @@ def overload_phase(dev, ldb, hdb, current, closed_loop, pipes, serving_qps: floa
                                 threads=burst_threads, port=ports["default"])
             if wrong(burst):
                 raise AssertionError("overload: a level-2 answer differs from its record")
-            formed = {int(k[len(prefix):-1]): v - b0.get(k, 0)
-                      for k, v in counters().items()
-                      if k.startswith(prefix) and v - b0.get(k, 0)}
+            formed = {b: n - b0.get(b, 0) for b, n in bucket_batches(leader, "leader").items()
+                      if n - b0.get(b, 0)}
             if max(formed) > OVERLOAD_BATCH_CAP:
                 raise AssertionError(f"overload: level 2 formed batches {formed}")
             entry["burst_batches_by_bucket"] = formed
@@ -3770,6 +3853,622 @@ def overload_phase(dev, ldb, hdb, current, closed_loop, pipes, serving_qps: floa
 # Private heavy hitters (the JAX package's heavy-hitters bench population,
 # `benchmarks/heavy_hitters_bench.py:_skewed_values`, at 65,536 clients
 # over 64-bit values): 4-bit rounds, 32-bit counts, threshold 32.
+FLEET_REPLICAS = 3
+FLEET_TENANTS = 12
+FLEET_REQUESTS = 1024
+FLEET_TRACED = 32
+FLEET_SPILL_REQUESTS = 192
+FLEET_ROTATION_REQUESTS = 128
+FLEET_CHECK_REQUESTS = 64
+FLEET_QUORUM = 2
+FLEET_BREAKER_RESET_MS = 500.0
+# Tenants of the warm-up start this far apart, so that the router places
+# each under the backlog of those before it.
+FLEET_STAGGER_S = 0.05
+# A request refused this many times (`SnapshotMismatch`: its pair caught
+# between its Helper's flip and its Leader's) fails the phase.
+FLEET_MAX_REFUSALS = 64
+
+
+class GenerationRecords:
+    """configs[1]'s records at one generation: the base records with the
+    rows each rotation up to it wrote (a sequence for the probe's oracle)."""
+
+    def __init__(self, base, writes):
+        self._base, self._writes = base, writes
+
+    def __len__(self):
+        return len(self._base)
+
+    def __getitem__(self, i):
+        return self._writes.get(i, self._base[i])
+
+
+def fleet_phase(dev, records, smi_line: str) -> None:
+    """The replica fleet at BASELINE.json configs[1] on one card:
+    FLEET_REPLICAS Leader/Helper pairs, each party a session over its own
+    database on the card with its own `SnapshotManager`, each Leader
+    reaching its Helper over a `TcpTransportPool` to a `FramedTcpServer`
+    on loopback as in `serving_phase`; the pairs in a `ReplicaSet` behind
+    a `FleetRouter`, one `ReplicaTelemetry` scope a replica in a
+    `FleetTelemetry`, and a `CrossReplicaProbe`. FLEET_TENANTS tenants in
+    threads of this process send one-query `LeaderRequest`s closed loop
+    through `FleetRouter.handle_request`; every answer must decode through
+    `handle_response` to the records of the generation its Leader share
+    bound to (`evaluated_generation`). Steps, one JSON line each:
+
+    1. `fleet`: FLEET_REQUESTS requests; q/s, p50 and p99, requests routed
+       to each replica, spillovers; each party's launches against the
+       plans of the buckets its batcher formed (`tier_launches`) and the
+       process's against their sum over the replicas; the fleet duty cycle
+       (`fleet.duty_cycle_pct`, the mean of the replicas' trackers) beside
+       the card's busy share (the union of every stream's kernel intervals
+       in a `torch.profiler` trace of FLEET_TRACED more requests).
+    2. `fleet_spillover`: the replica holding the most tenants gets an
+       admission budget too small for any request; FLEET_SPILL_REQUESTS
+       requests: spillovers > 0, every answer right, one generation for
+       every tenant.
+    3. `fleet_rotation` x3, each under a closed-loop wave with no think
+       time of at least FLEET_ROTATION_REQUESTS requests, half of them for
+       the touched rows, that goes on until FLEET_TENANTS requests have
+       been sent after the rotation ended (every answer its generation's,
+       every request sent after the rotation answered from the new one;
+       a request refused with `SnapshotMismatch` is sent again and
+       counted). First a delta of SERVING_UPDATES rows to generation 1 on
+       every replica at a quorum of FLEET_QUORUM, the tenants picking
+       their replica (`FleetRouter.pick`) and asking its Leader, as
+       `benchmarks/fleet_bench.py`'s tenants do: every replica flips in
+       the second phase, every staging a delta, the worst Helper -> Leader
+       flip window as staleness. Then generation 2 with `fleet.stage.r1`
+       armed once, the tenants through `FleetRouter.handle_request`, which
+       pins both of a replica's managers for each attempt, so that a flip
+       waits for a moment with no request on its replica: the quorum
+       stages, r1 is shed, converged and readmitted, and so is every
+       replica whose flip timed out; the rotation's seconds and each
+       replica's flip error are printed. Then generation 3 with two
+       replicas armed: `QuorumFailed`, every generation and staging as it
+       was, and FLEET_CHECK_REQUESTS requests answered from generation 2.
+    4. `fleet_probe`: the `CrossReplicaProbe` (golden rows that the
+       rotations touched among them) passes; a word XORed into one
+       replica's staging at a golden row gives a mismatch, a
+       `fleet.divergence` event and a bundle from the failure listener;
+       undone, the probe passes again.
+    5. `fleet_breaker`: the Helper leg of each replica in turn fails under
+       the `service.helper_leg` failpoint until its Leader's breaker
+       opens (the replica drains), then one request after the breaker's
+       reset closes it (the replica serves again).
+    6. `fleet_admin`: every route of an `AdminServer` with the fleet
+       attached (`fleet_admin`) answers as FLEET_ADMIN_ROUTES says, and
+       `/fleet-timelinez` holds, from every replica, its Leader's breaker
+       transitions and both parties' snapshot flips, each stamped with
+       the replica's id."""
+    import threading
+
+    import torch
+
+    from distributed_point_functions_tpu_torch.capacity.model import CapacityModel
+    from distributed_point_functions_tpu_torch.fleet import (
+        FleetRotationCoordinator,
+        FleetRouter,
+        FleetTelemetry,
+        QuorumFailed,
+        Replica,
+        ReplicaSet,
+    )
+    from distributed_point_functions_tpu_torch.observability import (
+        AdminServer,
+        BundleManager,
+    )
+    from distributed_point_functions_tpu_torch.observability.events import EventJournal
+    from distributed_point_functions_tpu_torch.ops import cuda_lib
+    from distributed_point_functions_tpu_torch.pir import (
+        DenseDpfPirClient,
+        DenseDpfPirDatabase,
+    )
+    from distributed_point_functions_tpu_torch.robustness import failpoints
+    from distributed_point_functions_tpu_torch.serving import (
+        CrossReplicaProbe,
+        FramedTcpServer,
+        HelperSession,
+        HelperUnavailable,
+        LeaderSession,
+        ServingConfig,
+        SnapshotManager,
+        SnapshotMismatch,
+        TcpTransportPool,
+    )
+    from distributed_point_functions_tpu_torch.serving.metrics import MetricsRegistry
+    from distributed_point_functions_tpu_torch.serving.service import evaluated_generation
+    from distributed_point_functions_tpu_torch.testing import encrypt_decrypt
+
+    t_phase = time.perf_counter()
+    steps = {}
+    rng = np.random.default_rng(SEED + 60)
+    work = Path(tempfile.mkdtemp(prefix="dpf-fleet-"))
+    helper_config = ServingConfig(max_batch_size=128, max_wait_ms=2.0,
+                                  breaker_reset_ms=FLEET_BREAKER_RESET_MS)
+    # Admission on every Leader, at a budget no request reaches until the
+    # spillover step shrinks one.
+    leader_config = dataclasses.replace(helper_config, admission_enabled=True,
+                                        admission_queue_budget_ms=1e9)
+    journal = EventJournal(capacity=1024)
+    replica_set = ReplicaSet(journal=journal)
+    fleet_metrics = MetricsRegistry()
+    router = FleetRouter(replica_set, journal=journal, metrics=fleet_metrics)
+    coordinator = FleetRotationCoordinator(replica_set, quorum=FLEET_QUORUM,
+                                           journal=journal)
+    telemetry = FleetTelemetry(replica_set, router=router, rotation=coordinator,
+                               journal=journal, registry=fleet_metrics)
+    coordinator.set_telemetry(telemetry)
+    dbs, tcp, replicas = {}, [], []
+    for k in range(FLEET_REPLICAS):
+        rid = f"r{k}"
+        ldb = DenseDpfPirDatabase(records, device=dev)
+        hdb = DenseDpfPirDatabase(records, device=dev)
+        ldb.staged()
+        hdb.staged()
+        helper = HelperSession(hdb, encrypt_decrypt.decrypt, config=helper_config,
+                               device=dev)
+        helper_tcp = FramedTcpServer(helper.handle_wire, host="127.0.0.1",
+                                     name=f"helper-{rid}").start()
+        leader = LeaderSession(
+            ldb, TcpTransportPool("127.0.0.1", helper_tcp.port, FLEET_TENANTS),
+            config=leader_config, device=dev)
+        tcp.append(helper_tcp)
+        # Each replica its own price model, so that /fleetz tells their
+        # price cards apart.
+        replica = replica_set.add(Replica(
+            rid, leader, helper, leader_snapshots=SnapshotManager(leader),
+            helper_snapshots=SnapshotManager(helper), capacity=CapacityModel()))
+        telemetry.scope(replica)
+        replicas.append(replica)
+        dbs[rid] = (ldb, hdb)
+    writes = {0: {}}  # generation -> {row: record}
+    oracle = {0: GenerationRecords(records, writes[0])}
+    golden = [0, NUM_RECORDS // 2, NUM_RECORDS - 1]
+    updated = [int(i) for i in rng.choice(NUM_RECORDS, SERVING_UPDATES, replace=False)]
+    probe = CrossReplicaProbe(replica_set.healthy, records,
+                              indices=sorted(golden + updated[:2]),
+                              records_provider=lambda g: oracle.get(g),
+                              journal=journal, metrics=fleet_metrics)
+    telemetry.set_probe(probe)
+    bundles = BundleManager(str(work / "bundles"), cooldown_s=0.0, journal=journal)
+    telemetry.wire_bundles(bundles)
+    clients = [DenseDpfPirClient.create(NUM_RECORDS, encrypt_decrypt.encrypt)
+               for _ in range(FLEET_TENANTS)]
+    steps["setup_s"] = time.perf_counter() - t_phase
+
+    def traffic(total, hot=(), hot_share=0.0, tally=None, stagger_s=0.0, pinned=True,
+                more=None):
+        """`total` requests from FLEET_TENANTS closed-loop tenant threads
+        (record `hot[k]` with probability `hot_share`, else uniform; tenant
+        t starts t x `stagger_s` late), then more while `more()` says so.
+        `pinned`: through `FleetRouter.handle_request`; else the tenant
+        picks its replica (`FleetRouter.pick`) and asks its Leader. Counts
+        answers and refusals in `tally`; returns [(tenant, index, answer,
+        generation, latency s from the keygen to the decoded answer,
+        perf_counter at the keygen)]."""
+        left = [total]  # below 0 once `more()` has let requests past `total`
+        tally = {"answered": 0, "refused": 0} if tally is None else tally
+        out, errors, lock = [], [], threading.Lock()
+        barrier = threading.Barrier(FLEET_TENANTS)
+
+        def ask(request, tenant):
+            for _ in range(FLEET_MAX_REFUSALS):
+                try:
+                    if pinned:
+                        return router.handle_request(request, tenant=tenant)
+                    return router.pick(tenant).leader.handle_request(request,
+                                                                     tenant=tenant)
+                except SnapshotMismatch:
+                    with lock:
+                        tally["refused"] += 1
+            raise AssertionError(f"fleet: {tenant}'s request refused "
+                                 f"{FLEET_MAX_REFUSALS} times")
+
+        def run(t):
+            tenant = f"tenant{t}"
+            rng_t = np.random.default_rng([SEED + 61, total, t])
+            barrier.wait()
+            time.sleep(t * stagger_s)
+            while not errors:
+                with lock:
+                    if left[0] <= 0 and not (more is not None and more()):
+                        return
+                    left[0] -= 1
+                i = (hot[int(rng_t.integers(0, len(hot)))]
+                     if hot and rng_t.random() < hot_share
+                     else int(rng_t.integers(0, NUM_RECORDS)))
+                sent = time.perf_counter()
+                try:
+                    request, state = clients[t].create_request([i])
+                    response = ask(request, tenant)
+                    generation = evaluated_generation()
+                    answer = clients[t].handle_response(response, state)[0]
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+                    return
+                with lock:
+                    out.append((tenant, i, answer, generation,
+                                time.perf_counter() - sent, sent))
+                    tally["answered"] += 1
+
+        pool = [threading.Thread(target=run, args=(t,)) for t in range(FLEET_TENANTS)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join()
+        if errors:
+            raise errors[0]
+        if len(out) != total - left[0]:
+            raise AssertionError(f"fleet: {len(out)} answers of {total - left[0]}")
+        return out
+
+    def check(answers, what):
+        """Every answer its generation's record; {generation: answers}."""
+        counts = {}
+        for tenant, i, answer, generation, _, _ in answers:
+            if generation not in oracle or answer != oracle[generation][i]:
+                raise AssertionError(f"{what}: {tenant}'s record {i} is not its "
+                                     f"generation {generation} value")
+            counts[generation] = counts.get(generation, 0) + 1
+        return counts
+
+    def routed():
+        return dict(router.export()["routed"])
+
+    # 1. Traffic.
+    t0 = time.perf_counter()
+    check(traffic(4 * FLEET_TENANTS, stagger_s=FLEET_STAGGER_S), "fleet warm-up")
+    torch.cuda.synchronize()
+    steps["warmup_s"] = time.perf_counter() - t0
+    sessions = {f"{r.replica_id}/{p}": (s, p) for r in replicas
+                for p, s in (("leader", r.leader), ("helper", r.helper))}
+    before = {k: launch_mark(s, p) for k, (s, p) in sessions.items()}
+    routed_before = routed()
+    spills_before = router.export()["spillovers"]
+    telemetry.sample()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = traffic(FLEET_REQUESTS)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got = {name: n for name, n in cuda_lib.LAUNCHES.items() if n}
+    sample = telemetry.sample()
+    steps["closed_loop_s"] = wall_s
+    if check(out, "fleet") != {0: FLEET_REQUESTS}:
+        raise AssertionError("fleet: an answer bound to another generation than 0")
+    # Each party's launches against the plans of its batches, and the
+    # process's against their sum over the replicas.
+    formed, want, per_party = {}, {}, {}
+    for key, (session, party) in sessions.items():
+        formed[key], planned, per_party[key] = planned_launches(session, party, before[key])
+        if per_party[key] != planned:
+            raise AssertionError(f"fleet: {key} launched {per_party[key]}, "
+                                 f"its batches' plans {planned}")
+        for name, n in planned.items():
+            want[name] = want.get(name, 0) + n
+    if got != want:
+        raise AssertionError(f"fleet: launch counts {got}, the plans' {want}")
+    lat = sorted(x[4] * 1e3 for x in out)
+    routed_now = routed()
+    by_replica = {rid: n - routed_before.get(rid, 0) for rid, n in routed_now.items()}
+    # The card's busy share: the union of kernel intervals on every stream.
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        check(traffic(FLEET_TRACED), "fleet traced")
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = merged_busy_ms(kernels) if kernels else None
+    duty = telemetry.sample()["duty_cycle_pct"]
+    steps["trace_s"] = time.perf_counter() - t0
+    nbatches = {k: sum(v.values()) for k, v in formed.items()}
+    emit({"phase": "fleet", "replicas": FLEET_REPLICAS, "records": NUM_RECORDS,
+          "record_bytes": RECORD_BYTES, "tenants": FLEET_TENANTS,
+          "requests": FLEET_REQUESTS, "queries_per_request": 1,
+          "max_batch_size": helper_config.max_batch_size,
+          "max_wait_ms": helper_config.max_wait_ms,
+          "transport": "in-process router; tcp loopback Leader -> Helper",
+          "reconstructed": FLEET_REQUESTS, "launches": got,
+          "launches_by_party": per_party, "batches": nbatches,
+          "batches_by_bucket": formed,
+          "queries_per_sec": FLEET_REQUESTS / wall_s,
+          "p50_ms": lat[len(lat) // 2], "p99_ms": lat[int(len(lat) * 0.99)],
+          "routed": by_replica,
+          "spillovers": router.export()["spillovers"] - spills_before,
+          "affinity": router.export()["affinity"],
+          "fleet_qps_gauge": sample["qps"],
+          "fleet_duty_cycle_pct": duty,
+          "traced_requests": FLEET_TRACED, "traced_wall_ms": traced_ms,
+          "traced_device_events": len(kernels), "device_busy_ms": busy_ms,
+          "device_busy_share": None if busy_ms is None else busy_ms / traced_ms,
+          "steps_s": steps, "phase_s": time.perf_counter() - t_phase,
+          "device": smi_line})
+
+    # 2. Spillover: the most loaded replica's admission sheds everything.
+    t0 = time.perf_counter()
+    tenants_of = {}
+    for tenant, rid in router.export()["affinity"].items():
+        tenants_of.setdefault(rid, []).append(tenant)
+    victim = replica_set.get(max(tenants_of, key=lambda r: len(tenants_of[r])))
+    spills_before = router.export()["spillovers"]
+    routed_before = routed()
+    victim.leader.admission.queue_budget_ms = 1e-9
+    try:
+        spilled = traffic(FLEET_SPILL_REQUESTS)
+    finally:
+        victim.leader.admission.queue_budget_ms = 1e9
+    spills = router.export()["spillovers"] - spills_before
+    check(spilled, "fleet_spillover")
+    per_tenant = {}
+    for tenant, _, _, generation, _, _ in spilled:
+        per_tenant.setdefault(tenant, set()).add(generation)
+    if not spills or any(len(g) != 1 for g in per_tenant.values()):
+        raise AssertionError(f"fleet_spillover: {spills} spillovers, generations by "
+                             f"tenant {per_tenant}")
+    emit({"phase": "fleet_spillover", "shed_replica": victim.replica_id,
+          "shed_replica_tenants": len(tenants_of[victim.replica_id]),
+          "requests": FLEET_SPILL_REQUESTS, "reconstructed": FLEET_SPILL_REQUESTS,
+          "spillovers": spills,
+          "routed": {rid: n - routed_before.get(rid, 0) for rid, n in routed().items()},
+          "spillover_rate_pct": router.spillover_rate_pct(),
+          "shed_replica_sheds": sum(t["shed"] for t in
+                                    victim.leader.admission.export()["tenants"].values()),
+          "generations_by_tenant": {t: sorted(g) for t, g in per_tenant.items()},
+          "seconds": time.perf_counter() - t0, "device": smi_line})
+
+    # 3. Rotations under the same traffic.
+    def next_generation(generation):
+        writes[generation] = {i: rng.bytes(RECORD_BYTES) for i in updated}
+        oracle[generation] = GenerationRecords(records, writes[generation])
+        out = {}
+        for rid, (ldb, hdb) in dbs.items():
+            builder = DenseDpfPirDatabase.Builder()
+            for i in updated:
+                builder.update(i, writes[generation][i])
+            out[rid] = (builder.build_from(ldb), builder.build_from(hdb))
+        return out
+
+    def rotate_under_traffic(generation, armed=(), pinned=True):
+        """Rotate to `generation` (a delta of the touched rows), with
+        `fleet.stage.<rid>` armed once for each of `armed`, once a quarter
+        of FLEET_ROTATION_REQUESTS have been answered, under a wave that
+        goes on until FLEET_TENANTS requests have been sent after the
+        rotation ended; returns (the new databases, the report, answers by
+        generation, answers sent after the rotation, the wave's seconds,
+        the rotation's seconds, refusals)."""
+        new_dbs = next_generation(generation)
+        report, span, raised, after = {}, [None, None], [], [0]
+        tally = {"answered": 0, "refused": 0}
+        stop = threading.Event()
+
+        def rotate():
+            while tally["answered"] < FLEET_ROTATION_REQUESTS // 4 and not stop.is_set():
+                time.sleep(0.001)
+            registry = failpoints.default_failpoints()
+            for rid in armed:
+                registry.arm(f"fleet.stage.{rid}", "error", times=1)
+            span[0] = time.perf_counter()
+            try:
+                report.update(coordinator.rotate(new_dbs))
+            except Exception as e:  # noqa: BLE001 - raised below
+                raised.append(e)
+            finally:
+                registry.clear()
+            span[1] = time.perf_counter()
+
+        def more():  # called under the wave's lock
+            if span[1] is None:
+                return True
+            after[0] += 1
+            return after[0] <= FLEET_TENANTS
+
+        t0 = time.perf_counter()
+        rotator = threading.Thread(target=rotate)
+        rotator.start()
+        try:
+            wave = traffic(FLEET_ROTATION_REQUESTS, hot=updated, hot_share=0.5,
+                           tally=tally, pinned=pinned, more=more)
+        finally:
+            stop.set()
+            rotator.join()
+        if raised:
+            raise raised[0]
+        counts = check(wave, f"fleet_rotation {generation}")
+        late = [x for x in wave if x[5] > span[1]]
+        if any(x[3] != generation for x in late):
+            raise AssertionError(f"fleet_rotation {generation}: a request sent after "
+                                 "the rotation answered from an older generation")
+        if counts.get(generation - 1, 0) == 0 or not late:
+            raise AssertionError(f"fleet_rotation {generation}: the wave did not span "
+                                 f"the rotation ({counts}, {len(late)} sent after it)")
+        return (new_dbs, report, counts, len(late), time.perf_counter() - t0,
+                span[1] - span[0], tally["refused"])
+
+    def flip_errors(report):
+        return {rid: row["flip_error"] for rid, row in report["per_replica"].items()
+                if "flip_error" in row}
+
+    rotations = []
+    new_dbs, report, *wave = rotate_under_traffic(1, pinned=False)
+    if (set(replica_set.generations().values()) != {1} or report["laggards"]
+            or sorted(report["flipped"]) != sorted(replica_set.generations())):
+        raise AssertionError(f"fleet_rotation 1: {report}, transitions "
+                             f"{replica_set.export()['history']}")
+    for r in replicas:
+        for stage in (m.export()["last_stage"] for m in r.managers()):
+            if stage["mode"] != "delta" or stage["bytes_saved"] <= 0:
+                raise AssertionError(f"fleet_rotation 1: {r.replica_id} staged {stage}")
+    dbs = new_dbs
+    rotations.append(("delta", "picked", report, *wave, replica_set.generations()))
+    readmissions = replica_set.export()["readmissions"]
+    new_dbs, report, *wave = rotate_under_traffic(2, armed=("r1",))
+    readmitted = replica_set.export()["readmissions"] - readmissions
+    if (report["acked"] != ["r0", "r2"]
+            or "stage_error" not in report["per_replica"]["r1"]
+            or report["laggards"].get("r1") != "recovered"
+            or set(report["laggards"].values()) != {"recovered"}
+            or set(report["laggards"]) != {"r1"} | set(flip_errors(report))
+            or readmitted != len(report["laggards"])
+            or set(replica_set.generations().values()) != {2}):
+        raise AssertionError(f"fleet_rotation 2: {report}, transitions "
+                             f"{replica_set.export()['history']}")
+    dbs = new_dbs
+    rotations.append(("laggard", "routed", report, *wave, replica_set.generations()))
+    t0 = time.perf_counter()
+    failed_dbs = next_generation(3)
+    registry = failpoints.default_failpoints()
+    registry.arm("fleet.stage.r0", "error", times=1)
+    registry.arm("fleet.stage.r2", "error", times=1)
+    try:
+        coordinator.rotate(failed_dbs)
+    except QuorumFailed as e:
+        quorum_failed = {"acked": e.acked, "failed": sorted(e.failed), "quorum": e.quorum}
+    else:
+        raise AssertionError("fleet_rotation 3: the rotation met its quorum")
+    finally:
+        registry.clear()
+    if (set(replica_set.generations().values()) != {2}
+            or any(m.staging_generation() is not None
+                   for r in replicas for m in r.managers())):
+        raise AssertionError("fleet_rotation 3: a replica moved after QuorumFailed")
+    for db in (d for pair in failed_dbs.values() for d in pair):
+        db.release_stagings()
+    del failed_dbs, oracle[3], writes[3]
+    after_failure = check(traffic(FLEET_CHECK_REQUESTS), "fleet_rotation 3")
+    if after_failure != {2: FLEET_CHECK_REQUESTS}:
+        raise AssertionError(f"fleet_rotation 3: answers by generation {after_failure}")
+    rotations.append(("quorum_failed", "routed", quorum_failed, after_failure, 0,
+                      time.perf_counter() - t0, None, 0, replica_set.generations()))
+    traffic_of = {"picked": "closed loop, no think time: FleetRouter.pick, then the "
+                            "replica's LeaderSession.handle_request (as "
+                            "benchmarks/fleet_bench.py)",
+                  "routed": "closed loop, no think time: FleetRouter.handle_request, "
+                            "which pins both managers of the replica for each attempt"}
+    for (kind, route, report, counts, late, seconds, rotation_s, refused,
+         generations) in rotations:
+        emit({"phase": "fleet_rotation", "kind": kind, "updated_rows": SERVING_UPDATES,
+              "quorum": FLEET_QUORUM, "traffic": traffic_of[route],
+              "requests": sum(counts.values()),
+              "answers_by_generation": counts, "answers_sent_after_rotation": late,
+              "refused": refused,
+              "report": {k: v for k, v in report.items() if k != "per_replica"},
+              "staleness_ms": report.get("staleness_ms"),
+              "flip_errors": flip_errors(report) if "per_replica" in report else {},
+              "per_replica": report.get("per_replica"),
+              "rotation_s": rotation_s,
+              "generations": generations, "seconds": seconds, "device": smi_line})
+
+    # 4. The cross-replica probe, and a divergence drill.
+    t0 = time.perf_counter()
+    first = probe.run_cycle()
+    if first["status"] != "pass":
+        raise AssertionError(f"fleet_probe: {first}")
+    fired = bundles.export()["fired"]
+    row = updated[0] if updated[0] in probe.export()["indices"] else golden[1]
+    drilled = replicas[1].leader.server.database
+    xor_staged_word(drilled, row, 0, 0x5A5A5A5A)
+    try:
+        bad = probe.run_cycle()
+    finally:
+        xor_staged_word(drilled, row, 0, 0x5A5A5A5A)
+    divergences = [e for e in journal.tail(n=1024) if e["kind"] == "fleet.divergence"]
+    bundle = bundles.export()["bundles"][-1] if bundles.export()["bundles"] else {}
+    again = probe.run_cycle()
+    if (bad["status"] != "mismatch" or bad["divergences"][0]["replica"] != "r1"
+            or not divergences or bundles.export()["fired"] != fired + 1
+            or bundle.get("reason") != "probe_failure" or again["status"] != "pass"):
+        raise AssertionError(f"fleet_probe: drill {bad}, bundles {bundles.export()}, "
+                             f"after {again}")
+    emit({"phase": "fleet_probe", "indices": probe.export()["indices"],
+          "generations": first["generations"], "cycle_ms": first["ms"],
+          "drill_row": row, "drill_status": bad["status"],
+          "drill_divergences": bad["divergences"], "bundle_reason": bundle["reason"],
+          "bundle_sources": sorted(bundle["sources"]),
+          "after_status": again["status"], "after_cycle_ms": again["ms"],
+          "seconds": time.perf_counter() - t0, "device": smi_line})
+
+    # 5. Each Leader's breaker: opened by a failing Helper leg, closed after.
+    t0 = time.perf_counter()
+    breaker_rows = {}
+    client = clients[0]
+    for r in replicas:
+        rid = r.replica_id
+        registry = failpoints.default_failpoints()
+        registry.arm("service.helper_leg", "error", times=None)
+        failed = 0
+        try:
+            while r.leader.breaker.state != "open" and failed < 16:
+                try:
+                    r.leader.handle_request(client.create_request([1])[0])
+                except HelperUnavailable:
+                    failed += 1
+        finally:
+            registry.clear()
+        drained = replica_set.state(rid)
+        time.sleep(FLEET_BREAKER_RESET_MS / 1e3 + 0.05)
+        request, state = client.create_request([golden[1]])
+        answer = client.handle_response(r.leader.handle_request(request), state)[0]
+        if (drained != "draining" or r.leader.breaker.state != "closed"
+                or replica_set.state(rid) != "serving" or answer != oracle[2][golden[1]]):
+            raise AssertionError(f"fleet_breaker: {rid} {drained} -> "
+                                 f"{replica_set.state(rid)}, breaker "
+                                 f"{r.leader.breaker.state}")
+        breaker_rows[rid] = {"failed_requests": failed, "drained": drained,
+                             "restored": replica_set.state(rid)}
+    emit({"phase": "fleet_breaker", "replicas": breaker_rows,
+          "seconds": time.perf_counter() - t0, "device": smi_line})
+
+    # 6. The admin endpoint with the fleet attached.
+    t0 = time.perf_counter()
+    with fleet_admin(AdminServer, bundles, replica_set, telemetry, journal,
+                     str(work)) as admin:
+        scraped = scrape_admin(admin.port, FLEET_ADMIN_ROUTES)
+        _, _, body = http_get(f"http://127.0.0.1:{admin.port}/fleet-timelinez"
+                              "?format=json&n=4096")
+        _, _, statusz = http_get(f"http://127.0.0.1:{admin.port}/fleet-statusz"
+                                 "?format=json")
+    answered = {route: (status, ctype) for route, (status, ctype, _) in scraped.items()}
+    if answered != FLEET_ADMIN_ROUTES:
+        raise AssertionError(f"fleet_admin: {answered}")
+    events = json.loads(body)["events"]
+    seen = {}
+    for e in events:
+        seen.setdefault(e.get("replica"), set()).add(e["kind"])
+    for r in replicas:
+        if not {"breaker.transition", "snapshot.flip"} <= seen.get(r.replica_id, set()):
+            raise AssertionError(f"fleet_admin: {r.replica_id}'s events "
+                                 f"{sorted(seen.get(r.replica_id, ()))}")
+    fleetz = json.loads(scraped["/fleetz"][2])
+    status_doc = json.loads(statusz)
+    emit({"phase": "fleet_admin", "routes": {k: v[0] for k, v in answered.items()},
+          "timeline_events": len(events),
+          "kinds_by_replica": {str(k): sorted(v) for k, v in seen.items()},
+          "fleetz_counts": fleetz["counts"], "sheds": fleetz["sheds"],
+          "readmissions": fleetz["readmissions"],
+          "prices": {rid: row["price"].get("replica") for rid, row in
+                     fleetz["replicas"].items()},
+          "verdict": status_doc["verdict"]["status"],
+          "fleet_gauges": status_doc["merged"]["fleet"]["gauges"],
+          "seconds": time.perf_counter() - t0, "device": smi_line})
+
+    for helper_tcp in tcp:
+        helper_tcp.stop()
+    for r in replicas:
+        r.leader.close()
+        r.helper.close()
+    for pair in dbs.values():
+        for db in pair:
+            db.release_stagings()
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "fleet_done", "phase_s": time.perf_counter() - t_phase,
+          "device": smi_line})
+
+
 HH_CLIENTS = 1 << 16
 HH_DOMAIN_BITS = 64
 HH_THRESHOLD = 32
@@ -4842,6 +5541,9 @@ def main() -> int:
     # The serving runtime at the same configuration: batched sessions
     # over framed TCP, then a rotation under traffic.
     serving_phase(dev, records, smi_line)
+    # The replica fleet at the same configuration: three pairs behind the
+    # router, quorum rotations, the cross-replica probe, the fleet admin.
+    fleet_phase(dev, records, smi_line)
 
     # 6. The DPF and DCF evaluation paths.
     dcf_launches = dcf_phase(rng, dev)

@@ -29,6 +29,8 @@ Copied from the JAX package (`tracing`, `phases`, `events`,
   trough windows, and incident debug bundles;
 * `autoprofile` -- a `torch.profiler` capture when a latency objective
   starts to burn;
+* `federation` (copied) -- the merge of N replicas' registry exports,
+  workload exports and journals into one fleet view;
 * `admin` -- the operator's HTTP endpoint over all of the above.
 
 The layers run serving -> observability -> utils / robustness; nothing
@@ -39,6 +41,18 @@ from .admin import AdminServer
 from .autoprofile import AutoProfiler, capture_profile
 from .bundle import BundleManager
 from .exposition import parse_labeled_name, render_prometheus
+from .federation import (
+    MEAN_GAUGE_SUFFIXES,
+    gauge_rule,
+    label_replica,
+    merge_histograms,
+    merge_metrics,
+    merge_timelines,
+    merge_workloads,
+    merged_flat,
+    percentile_from_buckets,
+    rebase_offset,
+)
 from .forecast import Forecaster, SeriesForecast, holt_fit
 from .timeseries import (
     AnomalyWatch,
@@ -54,12 +68,22 @@ __all__ = [
     "AutoProfiler",
     "BundleManager",
     "Forecaster",
+    "MEAN_GAUGE_SUFFIXES",
     "MetricsSampler",
     "SeriesForecast",
     "TimeSeriesStore",
     "capture_profile",
+    "gauge_rule",
     "holt_fit",
+    "label_replica",
+    "merge_histograms",
+    "merge_metrics",
+    "merge_timelines",
+    "merge_workloads",
+    "merged_flat",
     "parse_labeled_name",
+    "percentile_from_buckets",
+    "rebase_offset",
     "render_prometheus",
     "render_sparklines",
     "sparkline",

@@ -410,10 +410,11 @@ class CuckooHashedDpfPirDatabase:
     # -- rotation -----------------------------------------------------------
 
     def replica(self) -> "CuckooHashedDpfPirDatabase":
-        """A second database of this generation, staged from this one's
-        staging on the device (one device-to-device copy) once it stages:
-        each party of a two-server deployment in one process holds its
-        own, so that one party's rotation never frees the other's."""
+        """A second database of this generation that shares this one's
+        staging on the device once it stages (no copy): each party of a
+        two-server deployment in one process holds its own database, so
+        that one party's rotation never frees the other's staging, and a
+        delta built from either clones the shared staging."""
         dense = DenseDpfPirDatabase._from_delta(self._dense, {}, self._generation)
         return CuckooHashedDpfPirDatabase._from_dense(
             dense, self._key_size, self._value_size, self._params, self._slot_index,

@@ -334,8 +334,8 @@ class DenseDpfPirDatabase:
     def _from_delta(cls, prev: "DenseDpfPirDatabase", updates: dict,
                     generation: int) -> "DenseDpfPirDatabase":
         """Generation N+1 from N as its updated rows: the row indices,
-        their packed words, and `prev` (held until this generation is
-        staged). Every index is in range and every value fits `prev`'s
+        their packed words, and `prev` (see `_setup` for how long it is
+        held). Every index is in range and every value fits `prev`'s
         record size (`build_from` checks)."""
         db = cls.__new__(cls)
         db._setup(prev.size, prev.max_value_size, prev.device,
@@ -375,8 +375,11 @@ class DenseDpfPirDatabase:
         self._chunked = None  # (granule_blocks, staging)
         self._stage_lock = threading.Lock()
         # A delta build (`_from_delta`): the previous generation, held
-        # until this one is staged, and the updated rows.
+        # until this one is staged and serving (`mark_serving`), the next
+        # generation stages from this one, or this one stages without the
+        # base's staging; and the updated rows.
         self._delta_base = None
+        self._serving = False
         self._delta_rows = None
         self._delta_words = None
         # {mode, bytes_staged, bytes_full_image, bytes_saved, generation}
@@ -439,14 +442,32 @@ class DenseDpfPirDatabase:
                     staged[rows % 32, rows // 32] = values
                 if self._device.type == "cuda":
                     default_telemetry().transfers.record_h2d(moved, "db_staging")
+                # Until it serves, this generation keeps its base, so that a
+                # staging released before then (an aborted candidate, staged
+                # again for a fleet's laggard) stages again from the base's.
+                # The base, resident, lets go of its own, so the chain stays
+                # one long.
+                with base._stage_lock:
+                    base._delta_base = None
+                if self._serving:
+                    self._delta_base = None
             else:
                 host = self.host_rows()
                 moved = host.nbytes
                 staged = stage_bitmajor(host, self._device)
+                self._delta_base = None
             self._db_perm = self._publish(staged)
         self._host_words = None
-        self._delta_base = None
         return moved
+
+    def mark_serving(self) -> None:
+        """This generation serves from now on (`swap_database`): its
+        staging is released only when it retires, so it lets go of its
+        base generation once staged."""
+        with self._stage_lock:
+            self._serving = True
+            if self._db_perm is not None:
+                self._delta_base = None
 
     def host_rows(self) -> np.ndarray:
         """uint32[num_records_padded, W] host image of the rows: the host

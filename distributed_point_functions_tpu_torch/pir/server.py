@@ -320,7 +320,8 @@ class DenseDpfPirServer(DpfPirServer):
     def swap_database(self, database: DenseDpfPirDatabase) -> DenseDpfPirDatabase:
         """Serve `database`, a new generation of the same geometry, from
         the next batch on; returns the old one (still staged: the caller
-        frees it with `release_stagings` once its batches have drained).
+        frees it with `release_stagings` once its batches have drained;
+        `database`, once staged, no longer holds it).
         Safe only at a batch boundary (`serving/snapshots.py`): each
         batch reads the database once, the swap is one assignment."""
         if database is None:
@@ -336,6 +337,7 @@ class DenseDpfPirServer(DpfPirServer):
             if new_v != old_v:
                 raise ValueError(
                     f"swap_database {what} mismatch: {new_v} != {old_v}")
+        database.mark_serving()
         self._database = database
         return old
 

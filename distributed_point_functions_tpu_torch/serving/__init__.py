@@ -18,6 +18,12 @@
 * `sparse` -- `SparsePlainSession`, `SparseHelperSession`,
   `SparseLeaderSession`: cuckoo-hashed key-value lookups through the
   same sessions, and `sparse_lookup` / `sparse_lookup_plain`.
+* `prober` -- the blackbox `Prober` of one pair and the fleet's
+  `CrossReplicaProbe` (one golden pair through every replica). The
+  prober sits above `serving/` and `heavy_hitters/`: import it from
+  `serving.prober`. `serving.CrossReplicaProbe` resolves on first access,
+  and is left out of `__all__`, so that neither `import serving` nor
+  `from serving import *` loads `heavy_hitters/`.
 
 Ported from the JAX package's `serving/`; see each module for what it
 leaves out.
@@ -81,3 +87,12 @@ __all__ = [
     "sparse_lookup",
     "sparse_lookup_plain",
 ]
+
+
+def __getattr__(name):
+    # The prober imports heavy_hitters/, which `import serving` must not load.
+    if name == "CrossReplicaProbe":
+        from .prober import CrossReplicaProbe
+
+        return CrossReplicaProbe
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,8 @@
 """Blackbox verification prober: golden queries through the real
 serving path, checked bit-for-bit against a plaintext oracle.
 
-The port of the JAX package's `serving/prober.py` (its `Prober`; the
-cross-replica probe comes with the fleet), over the port's sessions: the
+The port of the JAX package's `serving/prober.py` (its `Prober` and its
+`CrossReplicaProbe`), over the port's sessions: the
 golden requests are made by the port's own clients, and the probes run
 on the session's device through the same kernels as production queries.
 
@@ -80,8 +80,10 @@ even when probes get slow — the prober must observe overload, not
 contribute to it.
 
 Layering: this module sits *above* `serving/` and `heavy_hitters/`
-and is deliberately NOT exported from `serving/__init__.py` — import it
-as `distributed_point_functions_tpu_torch.serving.prober`.
+and is NOT imported by `serving/__init__.py`: import `Prober` as
+`distributed_point_functions_tpu_torch.serving.prober.Prober`. The
+package resolves `serving.CrossReplicaProbe` on first access only, so
+that importing `serving/` loads nothing of `heavy_hitters/`.
 """
 
 from __future__ import annotations
@@ -111,7 +113,7 @@ from ..pir.sparse_client import (
 )
 from ..prng import xor_bytes
 
-__all__ = ["Prober", "PROBE_STATUSES"]
+__all__ = ["CrossReplicaProbe", "Prober", "PROBE_STATUSES"]
 
 PROBE_STATUSES = ("pass", "mismatch", "error", "degraded")
 
@@ -897,3 +899,293 @@ class Prober:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+class CrossReplicaProbe:
+    """Cross-replica consistency canary: the SAME golden pair issued to
+    EVERY replica must reconstruct bit-identically at the same
+    generation.
+
+    A fleet replicates the whole two-server deployment N times, which
+    adds a failure mode no single-pair prober can see: replica A and
+    replica B each pass their own bit-identity probes yet serve
+    *different* databases — a botched rotation, a partial upsert, a
+    replica restored from the wrong snapshot. This probe runs one
+    golden plain pair through every replica's real batched path, pins
+    each replica's SnapshotManagers for its attempt (a replica
+    mid-flip must answer from one generation), reconstructs per
+    replica, then groups answers by the generation each replica was
+    serving: **within a generation group every replica's bytes must be
+    identical**, and when an oracle is known for that generation they
+    must also match it. Replicas on different generations are NOT
+    compared against each other — during a rotation that split is
+    legitimate (and the router already refuses to mix them for one
+    tenant); it is reported, not failed.
+
+    Divergence emits a `fleet.divergence` event (severity error) and
+    fires the failure listeners with a prober-shaped result dict, so
+    wiring `BundleManager.on_probe_failure` here snapshots the debug
+    bundle the moment two replicas disagree.
+
+    `replicas` is a sequence — or a zero-arg callable returning one,
+    e.g. ``replica_set.healthy`` — of duck-typed entries carrying
+    `replica_id`, `leader` (a session), optional `snapshots` /
+    `helper_snapshots`, and `serving_generation()`; `fleet.Replica`
+    satisfies it, but this module never imports `fleet/` (the layering
+    keeps fleet -> serving one-way).
+    """
+
+    def __init__(
+        self,
+        replicas,
+        records: Sequence[bytes],
+        *,
+        indices: Optional[Sequence[int]] = None,
+        records_provider: Optional[Callable[[int], Sequence[bytes]]] = None,
+        generation: Optional[int] = None,
+        history: int = 32,
+        journal=None,
+        metrics=None,
+        clock=time.monotonic,
+        name: str = "cross_replica",
+    ):
+        if not records:
+            raise ValueError("records must not be empty")
+        self._replicas = replicas
+        self._records_provider = records_provider
+        self._journal = journal
+        self._metrics = metrics
+        self._clock = clock
+        self._name = name
+        self._lock = threading.Lock()
+        self._history: collections.deque = collections.deque(
+            maxlen=max(1, int(history))
+        )
+        self._seq = 0
+        self._cycles = 0
+        self._divergences = 0
+        self._errors = 0
+        self._last_pass_mono: Optional[float] = None
+        self._failure_listeners: List[Callable[[dict], None]] = []
+
+        n = len(records)
+        if indices is None:
+            indices = sorted({0, n // 2, n - 1})
+        self._indices = [int(i) for i in indices]
+        for i in self._indices:
+            if not 0 <= i < n:
+                raise ValueError(f"golden index {i} out of bounds for {n}")
+        self._db_size = n
+        self._base_generation = int(generation) if generation else 0
+        self._base_expected = [bytes(records[i]) for i in self._indices]
+        # One golden pair for the whole fleet: issuing the SAME DPF
+        # keys everywhere is the point — any byte difference between
+        # replicas' reconstructions is divergence by construction.
+        client = DenseDpfPirClient(n, lambda pt, info: pt)
+        self._plain_pair = client.create_plain_requests(self._indices)
+
+    def set_journal(self, journal):
+        """Point divergence events at a specific journal; None restores
+        the process journal."""
+        self._journal = journal
+        return journal
+
+    def add_failure_listener(self, listener: Callable[[dict], None]) -> None:
+        """`listener(result)` on every divergence/error cycle (wire
+        `BundleManager.on_probe_failure` here); exceptions swallowed."""
+        with self._lock:
+            self._failure_listeners.append(listener)
+
+    def _replica_list(self) -> List:
+        replicas = self._replicas
+        return list(replicas() if callable(replicas) else replicas)
+
+    def _oracle_for(self, generation: int) -> Optional[List[bytes]]:
+        """The expected golden plaintexts at `generation`, when known:
+        the constructor records at the base generation, the provider's
+        everywhere else (None when it cannot say)."""
+        if self._records_provider is not None:
+            records = self._records_provider(generation)
+            if records:
+                return [bytes(records[i]) for i in self._indices]
+        if generation == self._base_generation:
+            return list(self._base_expected)
+        return None
+
+    @staticmethod
+    def _issue(leader, request):
+        """Same entry rule as `Prober._issue_batched`, per replica."""
+        server = leader.server
+        if getattr(server, "role", "plain") == "plain":
+            return leader.handle_request(request)
+        return server._dispatch_plain(request)
+
+    def run_cycle(self) -> dict:
+        """Probe every replica once; returns the cycle result dict
+        (status `pass` / `mismatch` / `error`)."""
+        t0 = time.perf_counter()
+        req0, req1 = self._plain_pair
+        answers: Dict[str, dict] = {}
+        errors: Dict[str, str] = {}
+        for replica in self._replica_list():
+            rid = replica.replica_id
+            try:
+                managers = [
+                    m
+                    for m in (
+                        getattr(replica, "snapshots", None),
+                        getattr(replica, "helper_snapshots", None),
+                    )
+                    if m is not None
+                ]
+                # Pin the replica's managers: its two shares (and the
+                # generation label below) must belong to ONE generation
+                # even while a fleet rotation is in flight.
+                with contextlib.ExitStack() as stack:
+                    for manager in managers:
+                        stack.enter_context(manager.pin())
+                    generation = replica.serving_generation()
+                    resp0 = self._issue(replica.leader, req0)
+                    resp1 = self._issue(replica.leader, req1)
+                    masked0 = resp0.dpf_pir_response.masked_response
+                    masked1 = resp1.dpf_pir_response.masked_response
+                    got = [
+                        xor_bytes(a, b) for a, b in zip(masked0, masked1)
+                    ]
+                answers[rid] = {"generation": generation, "records": got}
+            except Exception as e:  # noqa: BLE001 - per-replica fault domain
+                errors[rid] = f"{type(e).__name__}: {e}"[:300]
+
+        # Group by serving generation; bit-identity is asserted within
+        # each group (cross-generation disagreement during a rotation
+        # is legitimate and merely reported).
+        groups: Dict[int, Dict[str, List[bytes]]] = {}
+        for rid, answer in answers.items():
+            groups.setdefault(answer["generation"], {})[rid] = answer[
+                "records"
+            ]
+        divergences: List[dict] = []
+        for generation, members in sorted(groups.items()):
+            rids = sorted(members)
+            reference_rid = rids[0]
+            reference = members[reference_rid]
+            oracle = self._oracle_for(generation)
+            for rid in rids:
+                got = members[rid]
+                baseline = oracle if oracle is not None else reference
+                baseline_name = (
+                    "oracle" if oracle is not None else reference_rid
+                )
+                for idx, want, have in zip(
+                    self._indices, baseline, got
+                ):
+                    if want != have:
+                        divergences.append(
+                            {
+                                "replica": rid,
+                                "generation": generation,
+                                "index": idx,
+                                "against": baseline_name,
+                                "expected": want.hex()[:32],
+                                "got": have.hex()[:32],
+                            }
+                        )
+                        break
+
+        status = "pass"
+        detail = None
+        if divergences:
+            status = "mismatch"
+            first = divergences[0]
+            detail = (
+                f"replica {first['replica']} diverges from "
+                f"{first['against']} at generation "
+                f"{first['generation']}, index {first['index']}"
+            )
+        elif errors and not answers:
+            status = "error"
+            detail = f"every replica errored: {sorted(errors)}"
+        ms = round((time.perf_counter() - t0) * 1e3, 3)
+        with self._lock:
+            self._seq += 1
+            self._cycles += 1
+            seq = self._seq
+            if status == "mismatch":
+                self._divergences += 1
+            if errors:
+                self._errors += len(errors)
+            if status == "pass":
+                self._last_pass_mono = self._clock()
+            listeners = list(self._failure_listeners)
+        result = {
+            "kind": self._name,
+            "status": status,
+            "detail": detail,
+            "ms": ms,
+            "seq": seq,
+            "t_wall": round(time.time(), 3),
+            "t_mono": round(self._clock(), 3),
+            "replicas": sorted(answers),
+            "generations": {
+                str(g): sorted(m) for g, m in sorted(groups.items())
+            },
+            "divergences": divergences,
+            "errors": errors,
+        }
+        with self._lock:
+            self._history.append(result)
+        if self._metrics is not None:
+            self._metrics.counter("fleet.probe_cycles").inc()
+            if divergences:
+                self._metrics.counter("fleet.divergences").inc(
+                    len(divergences)
+                )
+        if status != "pass":
+            journal = (
+                self._journal
+                if self._journal is not None
+                else events_mod.default_journal()
+            )
+            journal.emit(
+                "fleet.divergence"
+                if status == "mismatch"
+                else "fleet.probe_error",
+                f"{self._name}: {detail}",
+                severity="error",
+                probe_kind=self._name,
+                probe_seq=seq,
+                divergences=len(divergences),
+                replicas=sorted(answers),
+            )
+            for listener in listeners:
+                try:
+                    listener(result)
+                except Exception:  # noqa: BLE001 - canary must keep flying
+                    pass
+        return result
+
+    def last_pass_age_s(self) -> Optional[float]:
+        """Seconds since the last fully passing cycle — the fleet SLO
+        "divergence-probe freshness" reads this. None until the probe
+        has passed once (graded as no_data, not a breach: a fleet that
+        has not been probed yet is not failing its SLO)."""
+        with self._lock:
+            if self._last_pass_mono is None:
+                return None
+            return max(0.0, self._clock() - self._last_pass_mono)
+
+    def export(self) -> dict:
+        age = self.last_pass_age_s()
+        with self._lock:
+            return {
+                "name": self._name,
+                "indices": list(self._indices),
+                "db_size": self._db_size,
+                "cycles": self._cycles,
+                "divergences": self._divergences,
+                "errors": self._errors,
+                "last_pass_age_s": (
+                    round(age, 3) if age is not None else None
+                ),
+                "history": [dict(r) for r in self._history],
+            }

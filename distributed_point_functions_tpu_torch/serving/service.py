@@ -290,6 +290,11 @@ class _Session:
                 pipeline_depth=self._config.pipeline_depth,
             )
             server.set_plain_handler(self._batched_plain_handler)
+        # Where this session's own events go: None is the process
+        # journal; a fleet points it at its replica's scoped journal, so
+        # that breaker transitions, degraded mode and generation skew
+        # carry the replica's identity when N replicas share a process.
+        self._session_journal = None
         self._util = None
         if self._config.utilization:
             self.set_utilization(default_utilization_tracker())
@@ -323,8 +328,23 @@ class _Session:
             self._batcher.set_generation_source(manager)
         return manager
 
+    def set_journal(self, journal):
+        """Route this session's own events through `journal` (a
+        replica-scoped `EventJournal`); None restores the process
+        journal. Returns `journal`."""
+        self._session_journal = journal
+        return journal
+
     def _emit(self, kind, message, severity="info", **fields):
-        events_mod.default_journal().emit(kind, message, severity=severity, **fields)
+        journal = (
+            self._session_journal
+            if self._session_journal is not None
+            else events_mod.default_journal()
+        )
+        try:
+            journal.emit(kind, message, severity=severity, **fields)
+        except Exception:  # noqa: BLE001 - journaling never breaks serving
+            pass
 
     # -- observation -----------------------------------------------------------
 

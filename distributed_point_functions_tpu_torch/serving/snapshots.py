@@ -169,6 +169,13 @@ class SnapshotManager:
                 if self._staging is not None else None
             )
 
+    def set_journal(self, journal):
+        """Point rotation events at a (replica-scoped) journal; None
+        restores the process journal. A fleet's telemetry plane calls
+        this when it adopts the replica. Returns `journal`."""
+        self._journal = journal
+        return journal
+
     def _emit(self, kind, message, severity="info", **fields):
         journal = (
             self._journal

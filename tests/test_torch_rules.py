@@ -10,8 +10,9 @@
   way to a plain version; the sparse database's cuckoo build has no `try`
   and reads no environment variable (SHA256 runs the native build); the
   serving runtime (`serving/`, `observability/`, `robustness/`, `utils/`,
-  the prober and the operator's admin surface included) reads none
-  either, and its sessions default to the card.
+  the prober, the operator's admin surface, the fleet's `fleet/` and
+  `observability/federation.py` included) reads none either, and its
+  sessions default to the card.
 * The launch counters lose no count when threads launch at once.
 * Heavy hitters (`heavy_hitters/`, and the `capacity/model.py`,
   `capacity/calibration.py`,
@@ -55,7 +56,8 @@ from distributed_point_functions_tpu_torch.value_types import IntType
 
 PORT_DIR = Path(port.__file__).resolve().parent
 REPO = PORT_DIR.parent
-# The serving runtime's modules (dotted, under the port).
+# The serving runtime's modules, the replica fleet's included (dotted,
+# under the port).
 SERVING_MODULES = (
     "serving", "serving.batcher", "serving.metrics", "serving.service",
     "serving.snapshots", "serving.transport", "observability",
@@ -66,7 +68,8 @@ SERVING_MODULES = (
     "utils.profiling", "utils.runtime", "serving.prober", "observability.admin",
     "observability.autoprofile", "observability.bundle",
     "observability.exposition", "observability.forecast",
-    "observability.timeseries",
+    "observability.timeseries", "observability.federation", "fleet",
+    "fleet.registry", "fleet.router", "fleet.rotation", "fleet.telemetry",
 )
 # Private heavy hitters and the modules it brings (dotted, under the port).
 HH_MODULES = (
